@@ -1,0 +1,450 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+
+Run from the repository root:  python3 chip_smoke.py
+
+Phases, each of which exits non-zero on failure:
+  1. the card's name and power limit (nvidia-smi);
+  2. build the CUDA kernels from fewshot_torch/ops/csrc (nvcc, sm_90a);
+  3. each kernel against its plain PyTorch twin at full width (E=256,
+     H=512, 2 layers; bf16 and fp32; ragged masks), with its time (CUDA
+     events), its bound, the twin's time and torch.nn.LSTM (cuDNN) timed
+     at the same shape as a yardstick only;
+  4. serving phase A, the bench config (support_mode=mean_state, batch 32,
+     the per-layer kernel): an HTTP server answers concurrent /generate
+     requests; the per-layer kernel's launch count must rise;
+  5. serving phase B, the shipped config (support_mode=state, batch 16,
+     the fused-stack kernel); the fused kernel's launch count must rise;
+  6. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+
+Weights are random from a seed; the corpus is the synthetic bench corpus
+built offline in a temporary directory.  fp32 matmuls run in full fp32
+(TF32 off for both matmul and cuDNN).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import tempfile
+import threading
+import time
+import urllib.request
+from concurrent import futures
+from pathlib import Path
+
+import numpy as np
+import torch
+
+E, H, LAYERS = 256, 512, 2
+PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # H100 SXM
+PEAK_BYTES = 3.35e12                                           # HBM3, B/s
+TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
+STATE_TOL = 2e-2        # support state, kernel route vs plain route (bf16)
+KERNEL_REPS, PLAIN_REPS = 20, 3
+ROUNDS = 3              # rounds of 7 requests per serving phase
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of fn() over `reps` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host time of fn() ending in a device synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def device_busy_ms(fn) -> float | None:
+    """Device kernel time summed over one call of fn (torch.profiler);
+    None when the profiler shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if getattr(e, "device_type", None) == DeviceType.CUDA)
+    if total <= 0:
+        log("  profiler: no device time recorded (not measured)")
+        return None
+    return total / 1e3
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their twins
+# ---------------------------------------------------------------------------
+
+def ragged_mask(gen, steps: int, rows: int, songs: int) -> torch.Tensor:
+    """[T, B, 1] fp32: each row is `songs` songs of random length packed
+    in equal slots (PAD between them), one row of length 1."""
+    slot = steps // songs
+    lens = torch.randint(1, slot + 1, (rows, songs), generator=gen)
+    lens[0] = 0
+    lens[0, 0] = 1
+    live = torch.arange(slot)[None, None] < lens[..., None]   # [B, S, slot]
+    return live.reshape(rows, steps).T[..., None].float().contiguous()
+
+
+def cudnn_lstm_ms(wh, b, steps, rows, in_dim, layers, dtype):
+    """torch.nn.LSTM (cuDNN) at the same shape: the yardstick only.
+
+    Gates permuted from (i, j, f, o) to PyTorch's (i, f, g, o), forget bias
+    folded into bias_ih.  It also projects its input (the kernels take
+    that projection precomputed) and has no mask."""
+    dev = wh.device
+    lstm = torch.nn.LSTM(in_dim, H, num_layers=layers).to(dev, dtype)
+    perm = torch.cat([torch.arange(0, H), torch.arange(2 * H, 3 * H),
+                      torch.arange(H, 2 * H), torch.arange(3 * H, 4 * H)])
+    bias = b.float().clone()
+    bias[..., 2 * H:3 * H] += 1.0
+    with torch.no_grad():
+        for l in range(layers):
+            w = wh[l] if wh.dim() == 3 else wh
+            bl = bias[l] if bias.dim() == 2 else bias
+            getattr(lstm, f"weight_hh_l{l}").copy_(w[:, perm].T)
+            getattr(lstm, f"bias_ih_l{l}").copy_(bl[perm])
+            getattr(lstm, f"bias_hh_l{l}").zero_()
+    lstm.flatten_parameters()
+    x = torch.randn(steps, rows, in_dim, device=dev, dtype=dtype)
+    try:
+        with torch.no_grad():
+            return cuda_ms(lambda: lstm(x), KERNEL_REPS)
+    except RuntimeError as e:            # no cuDNN LSTM for this dtype
+        log(f"  cudnn yardstick unavailable for {dtype}: {e}")
+        return None
+
+
+def bound(byte_count: float, ops: float, dtype) -> tuple[float, str]:
+    t_bytes = byte_count / PEAK_BYTES
+    t_ops = ops / PEAK_FLOPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def check_kernel(name, wrapper, plain, args, live_steps, extra_matmuls,
+                 dtype, library):
+    """Run kernel and twin on the same inputs; returns the record."""
+    with torch.no_grad():
+        got = wrapper(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        errs = [float((g.float() - w.float()).abs().max())
+                for g, w in zip(got, want)]
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        tol_s, tol_h = TOL[dtype]
+        ok = (finite and max(errs[:2]) <= tol_s and max(errs[2:]) <= tol_h)
+        ms = cuda_ms(lambda: wrapper(*args), KERNEL_REPS)
+        plain_ms = cuda_ms(lambda: plain(*args), PLAIN_REPS, warmup=1)
+    zx = args[0]
+    t_, b_, four_h = zx.shape
+    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    out_bytes = sum(g.numel() * g.element_size() for g in got)
+    # the products a real step needs: h . Wh per layer, plus x . Wx for
+    # the layers the kernel projects; PAD steps need none
+    ops = 2.0 * live_steps * (four_h // 4) * four_h * extra_matmuls
+    bound_ms, bound_by = bound(in_bytes + out_bytes, ops, dtype)
+    rec = {"name": name, "dtype": str(dtype).replace("torch.", ""),
+           "shape": {"steps": t_, "rows": b_, "hidden": four_h // 4},
+           "max_abs_err": max(errs), "tolerance": [tol_s, tol_h],
+           "errors_ys_cs_hT_cT": errs, "parity": ok, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": library()}
+    log(f"  {name} {rec['dtype']}: max_abs_err {max(errs):.3g} "
+        f"(tol {tol_s}/{tol_h}) parity={ok} kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), cuDNN "
+        f"{rec['library_ms']}")
+    if not ok:
+        raise RuntimeError(f"{name} {dtype} disagrees with its twin: {errs}")
+    return rec
+
+
+def kernel_phase(dev) -> dict:
+    from fewshot_torch.ops import lstm_layer, lstm_stack
+    gen = torch.Generator().manual_seed(0)
+    lim = (6.0 / (5 * H)) ** 0.5
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def unif(*shape):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * lim).to(dev)
+
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        # kernel 1: mean_state support pass, 32 episodes x 5 songs, L=96
+        t_, rows = 96, 160
+        mask = ragged_mask(gen, t_, rows, 1).to(dev)
+        args = (rand(t_, rows, 4 * H, scale=0.6).to(dtype),
+                unif(H, 4 * H).to(dtype), rand(4 * H, scale=0.1), mask,
+                rand(rows, H, scale=0.5), rand(rows, H, scale=0.5))
+        records[("layer", dtype)] = check_kernel(
+            "lstm_layer_fwd", lstm_layer.lstm_layer_fwd,
+            lstm_layer.lstm_layer_fwd_plain, args, float(mask.sum()), 1,
+            dtype, lambda: cudnn_lstm_ms(args[1], args[2], t_, rows, H, 1,
+                                         dtype))
+        # kernel 3: state support pass, 16 episodes x 5 songs x L=96
+        t_, rows = 480, 16
+        mask = ragged_mask(gen, t_, rows, 5).to(dev)
+        args = (rand(t_, rows, 4 * H, scale=0.6).to(dtype),
+                unif(LAYERS - 1, H, 4 * H).to(dtype),
+                unif(LAYERS, H, 4 * H).to(dtype),
+                rand(LAYERS, 4 * H, scale=0.1), mask,
+                rand(LAYERS, rows, H, scale=0.5),
+                rand(LAYERS, rows, H, scale=0.5))
+        # layer 0: h.Wh; layers >= 1: x.Wx + h.Wh
+        records[("stack", dtype)] = check_kernel(
+            "lstm_stack_fwd", lstm_stack.lstm_stack_fwd,
+            lstm_stack.lstm_stack_fwd_plain, args, float(mask.sum()),
+            2 * LAYERS - 1, dtype,
+            lambda: cudnn_lstm_ms(args[2], args[3], t_, rows, E, LAYERS,
+                                  dtype))
+    return records
+
+
+# ---------------------------------------------------------------------------
+# phases 4-5: serving over HTTP
+# ---------------------------------------------------------------------------
+
+def bench_corpus(tmp: Path):
+    from fewshot_torch.data.corpus import build_lyrics_corpus
+    from fewshot_torch.data.synthetic import generate_lyrics_csv
+    csv = tmp / "lyrics.csv"
+    generate_lyrics_csv(csv, num_artists=24, songs_per_artist=16, seed=0)
+    return build_lyrics_corpus(csv, tmp / "bench_lyrics", vocab_size=5000,
+                               max_len=0, seed=0)
+
+
+def post(url: str, payload: dict) -> tuple[int, dict, float]:
+    req = urllib.request.Request(
+        url + "/generate", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        body = json.loads(resp.read())
+        return resp.status, body, time.perf_counter() - t0
+
+
+def serving_phase(label, cfg, corpus, dev, counter) -> dict:
+    from fewshot_torch.models import lm
+    from fewshot_torch.ops import lstm_layer, lstm_stack
+    from fewshot_torch.serve import Generator, serve
+
+    params = lm.init_lm(cfg, len(corpus.vocab),
+                        torch.Generator().manual_seed(cfg.seed), dev)
+    lstm_layer.lstm_layer_fwd.launches = 0
+    lstm_stack.lstm_stack_fwd.launches = 0
+    gen = Generator(cfg, corpus, params, batch_size=cfg.batch_size,
+                    device=dev)
+    srv = serve(gen, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as r:
+            health = json.loads(r.read())
+        if health.get("status") != "ok" or health.get("device") != str(dev):
+            raise RuntimeError(f"{label}: bad /healthz {health}")
+        name = corpus.artist_names[5]
+        payloads = []
+        for rnd in range(ROUNDS):
+            payloads += [{"num": 4, "split": "train",
+                          "episode_seed": 10 * rnd + i, "temperature": t}
+                         for i, t in enumerate((0.7, 1.0, 1.2, 0.9))]
+            payloads += [{"num": 2, "artist": name, "temperature": 0.8,
+                          "episode_seed": rnd},
+                         {"num": cfg.batch_size, "split": "test",
+                          "episode_seed": 99 + rnd},
+                         {"num": 1, "split": "val", "episode_seed": 5 + rnd,
+                          "temperature": 0.5}]
+        t0 = time.perf_counter()
+        results = []
+        for rnd in range(ROUNDS):          # 4 concurrent, then 3 in turn
+            batch = payloads[7 * rnd:7 * rnd + 7]
+            with futures.ThreadPoolExecutor(max_workers=4) as ex:
+                results += list(ex.map(lambda p: post(url, p), batch[:4]))
+            results += [post(url, p) for p in batch[4:]]
+        wall = time.perf_counter() - t0
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    launches = {"lstm_layer_fwd": lstm_layer.lstm_layer_fwd.launches,
+                "lstm_stack_fwd": lstm_stack.lstm_stack_fwd.launches}
+
+    tokens = 0
+    for payload, (status, body, _) in zip(payloads, results):
+        outs = body.get("continuations", [])
+        if status != 200 or len(outs) != payload["num"]:
+            raise RuntimeError(f"{label}: bad reply {status} {body}")
+        for rec in outs:
+            if not isinstance(rec.get("text"), str) or \
+                    not 0 <= rec["tokens"] <= cfg.sample_tokens:
+                raise RuntimeError(f"{label}: malformed continuation {rec}")
+            if "artist" in payload and rec["artist"] != payload["artist"]:
+                raise RuntimeError(f"{label}: wrong artist {rec}")
+            tokens += rec["tokens"]
+    if launches[counter] == 0:
+        raise RuntimeError(f"{label}: {counter} never launched: {launches}")
+
+    # the served support pass through the kernels against the plain
+    # step loop, on one batch of training-split episodes
+    from fewshot_torch import sampling
+    from fewshot_torch.data import episodes as eps
+    ep = eps.sample_episode_for_artists(
+        [sampling.row_generator(s, 0) for s in range(cfg.batch_size)],
+        gen.data, torch.as_tensor(np.resize(corpus.splits["train"],
+                                            cfg.batch_size)),
+        k=cfg.support_size, q=cfg.query_size)
+    with torch.inference_mode():
+        fast = lm.support_state(gen.params, ep.support, ep.support_len, cfg,
+                                eval_mode=True)
+        slow = lm.support_state(gen.params, ep.support, ep.support_len,
+                                dataclasses.replace(cfg, cell="scan"),
+                                eval_mode=True)
+    state_err = max(float((a - b).abs().max())
+                    for (ha, ca), (hb, cb) in zip(fast, slow)
+                    for a, b in ((ha, hb), (ca, cb)))
+    if not state_err <= STATE_TOL:
+        raise RuntimeError(f"{label}: support state off by {state_err}")
+
+    # where a batch's time goes: the support pass (kernels) against the
+    # whole generate() call (support pass + token-by-token decode)
+    def support():
+        with torch.inference_mode():
+            lm.support_state(gen.params, ep.support, ep.support_len, cfg,
+                             eval_mode=True)
+
+    def generate():
+        sampling.generate(gen.params, ep.support, ep.support_len,
+                          [sampling.row_generator(s, 1, dev)
+                           for s in range(cfg.batch_size)], cfg)
+
+    support_ms, generate_ms = host_ms(support), host_ms(generate)
+    busy_ms = device_busy_ms(generate)
+    gen.close()
+    lat = sorted(r[2] for r in results)
+    rec = {"phase": label, "support_mode": cfg.support_mode,
+           "serve_batch": cfg.batch_size, "requests": len(results),
+           "p50_latency_s": statistics.median(lat),
+           "max_latency_s": lat[-1], "generated_tokens": tokens,
+           "wall_s": wall, "tokens_per_s": tokens / wall,
+           "warmup_s": gen.warm_s, "launches": launches,
+           "support_state_err_vs_plain": state_err,
+           "batch_support_ms": support_ms, "batch_generate_ms": generate_ms,
+           "batch_device_busy_ms": busy_ms,
+           "batch_device_idle_share": (None if busy_ms is None
+                                       else 1.0 - busy_ms / generate_ms)}
+    log(f"{label}: {json.dumps(rec)}")
+    return rec
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 2
+    from fewshot_torch.config import Config
+    from fewshot_torch.ops import _ext
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+    card = card_line()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} device(s)")
+
+    t0 = time.perf_counter()
+    _ext.load("lstm_fwd")
+    log(f"build: lstm_fwd in {time.perf_counter() - t0:.1f} s")
+    for line in _ext.build_log.get("lstm_fwd", "").splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    log("kernels vs plain twins (full width):")
+    records = kernel_phase(dev)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        corpus = bench_corpus(Path(tmp))
+    log(f"bench corpus: {corpus.songs.shape[0]} songs, max_len "
+        f"{corpus.max_len}, vocab {len(corpus.vocab)}")
+    base = Config(vocab_size=5000, max_len=corpus.max_len, embed_dim=E,
+                  hidden_dim=H, num_layers=LAYERS, support_size=5,
+                  query_size=5, cell="pallas", compute_dtype="bfloat16",
+                  sample_tokens=128, top_k=40, seed=0)
+    phase_a = serving_phase(
+        "serving_A", dataclasses.replace(base, support_mode="mean_state",
+                                         batch_size=32),
+        corpus, dev, "lstm_layer_fwd")
+    phase_b = serving_phase(
+        "serving_B", dataclasses.replace(base, support_mode="state",
+                                         batch_size=16),
+        corpus, dev, "lstm_stack_fwd")
+
+    meta = {
+        "lstm_layer_fwd": ("fewshot/ops/lstm_pallas.py:122", phase_a),
+        "lstm_stack_fwd": ("fewshot/ops/lstm_fused.py:88", phase_b),
+    }
+    kernels = []
+    for key, name in (("layer", "lstm_layer_fwd"),
+                      ("stack", "lstm_stack_fwd")):
+        replaces, phase = meta[name]
+        r = records[(key, torch.bfloat16)]
+        f = records[(key, torch.float32)]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "fewshot_torch/ops/csrc/lstm_fwd.cu",
+            "replaces": replaces, "launches": phase["launches"][name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "dtype": "bfloat16", "shape": r["shape"],
+            "parity": r["parity"] and f["parity"],
+            "fp32": {k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")}})
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(card, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

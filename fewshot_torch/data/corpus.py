@@ -1,0 +1,158 @@
+"""Packed corpus: dense int32 arrays that episode assembly gathers from.
+
+Port of ``fewshot/data/corpus.py`` (pack, save, load, ``device_arrays``,
+``make_splits``, ``build_lyrics_corpus``).  It reads and writes the same
+``corpus.npz`` / ``meta.json`` / ``vocab.json`` files, so a corpus packed by
+either package serves both.
+
+Arrays (all int32):
+    songs            [S, max_len]  BOS + tokens + EOS, PAD-padded/truncated
+    song_len         [S]           true length incl. BOS/EOS
+    song_artist      [S]           owning artist id
+    artist_song_ids  [A, M]        song ids per artist, padded with slot 0
+    artist_num_songs [A]           valid prefix length of each artist row
+    splits[name]     [n]           artist ids per split (train/val/test)
+"""
+
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+from pathlib import Path
+
+import numpy as np
+
+from fewshot_torch.data import lyrics as lyrics_mod
+from fewshot_torch.data.vocab import BOS, EOS, PAD, Vocab
+
+SPLIT_FRACS = {"train": 0.8, "val": 0.1, "test": 0.1}
+
+
+@dataclass
+class PackedCorpus:
+    songs: np.ndarray
+    song_len: np.ndarray
+    song_artist: np.ndarray
+    artist_song_ids: np.ndarray
+    artist_num_songs: np.ndarray
+    splits: dict[str, np.ndarray]
+    artist_names: list[str] = field(default_factory=list)
+    vocab: Vocab | None = None
+
+    @property
+    def max_len(self) -> int:
+        return int(self.songs.shape[1])
+
+    @property
+    def num_artists(self) -> int:
+        return int(self.artist_song_ids.shape[0])
+
+    @classmethod
+    def pack(cls, items: list[tuple[str, str, list[int]]], vocab: Vocab,
+             max_len: int, seed: int = 0) -> "PackedCorpus":
+        """Pack (artist, song, ids) tuples; ids exclude BOS/EOS framing.
+
+        max_len <= 0 means auto: longest song + framing, rounded up to a
+        multiple of 8 (the recurrence runs max_len steps, so a loose budget
+        wastes serial time)."""
+        if max_len <= 0:
+            longest = max((len(ids) for _, _, ids in items), default=0)
+            max_len = ((longest + 2 + 7) // 8) * 8
+        artists = sorted({a for a, _, _ in items})
+        aidx = {a: i for i, a in enumerate(artists)}
+        n_songs = len(items)
+
+        songs = np.full((n_songs, max_len), PAD, np.int32)
+        song_len = np.zeros(n_songs, np.int32)
+        song_artist = np.zeros(n_songs, np.int32)
+        per_artist: dict[int, list[int]] = {i: [] for i in range(len(artists))}
+        for i, (a, _, ids) in enumerate(items):
+            framed = [BOS] + list(ids[: max_len - 2]) + [EOS]
+            songs[i, : len(framed)] = framed
+            song_len[i] = len(framed)
+            song_artist[i] = aidx[a]
+            per_artist[aidx[a]].append(i)
+
+        max_songs = max(len(v) for v in per_artist.values())
+        artist_song_ids = np.zeros((len(artists), max_songs), np.int32)
+        artist_num_songs = np.zeros(len(artists), np.int32)
+        for ai, ids in per_artist.items():
+            artist_song_ids[ai, : len(ids)] = ids
+            artist_num_songs[ai] = len(ids)
+
+        splits = make_splits(len(artists), seed)
+        return cls(songs, song_len, song_artist, artist_song_ids,
+                   artist_num_songs, splits, artists, vocab)
+
+    def save(self, corpus_dir: str | Path) -> None:
+        d = Path(corpus_dir)
+        d.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(
+            d / "corpus.npz", songs=self.songs, song_len=self.song_len,
+            song_artist=self.song_artist, artist_song_ids=self.artist_song_ids,
+            artist_num_songs=self.artist_num_songs,
+            **{f"split_{k}": v for k, v in self.splits.items()})
+        (d / "meta.json").write_text(json.dumps(
+            {"artist_names": self.artist_names}))
+        if self.vocab is not None:
+            self.vocab.save(d / "vocab.json")
+
+    @classmethod
+    def load(cls, corpus_dir: str | Path) -> "PackedCorpus":
+        d = Path(corpus_dir)
+        if (d / "bpe.json").exists():
+            raise NotImplementedError(
+                f"{d} is a BPE corpus; BPE expansion is not ported yet")
+        z = np.load(d / "corpus.npz")
+        splits = {k[len("split_"):]: z[k] for k in z.files
+                  if k.startswith("split_")}
+        meta = json.loads((d / "meta.json").read_text()) \
+            if (d / "meta.json").exists() else {}
+        vocab = Vocab.load(d / "vocab.json") \
+            if (d / "vocab.json").exists() else None
+        return cls(z["songs"], z["song_len"], z["song_artist"],
+                   z["artist_song_ids"], z["artist_num_songs"], splits,
+                   meta.get("artist_names", []), vocab)
+
+    def device_arrays(self) -> dict[str, np.ndarray]:
+        """The arrays episode assembly needs (episodes.put_corpus)."""
+        return {
+            "songs": self.songs,
+            "song_len": self.song_len,
+            "artist_song_ids": self.artist_song_ids,
+            "artist_num_songs": self.artist_num_songs,
+        }
+
+
+def make_splits(num_artists: int, seed: int = 0,
+                fracs: dict[str, float] = SPLIT_FRACS) -> dict[str, np.ndarray]:
+    """Deterministic artist-level split.
+
+    Needs >= 3 artists.  For tiny corpora where the test fraction rounds to
+    zero, test aliases val rather than being empty."""
+    if num_artists < 3:
+        raise ValueError(
+            f"make_splits needs >= 3 artists for train/val/test, got "
+            f"{num_artists}")
+    perm = np.random.RandomState(seed).permutation(num_artists)
+    n_train = max(1, int(round(num_artists * fracs["train"])))
+    n_val = max(1, int(round(num_artists * fracs["val"])))
+    n_train = min(n_train, num_artists - 2)
+    return {
+        "train": np.sort(perm[:n_train]).astype(np.int32),
+        "val": np.sort(perm[n_train:n_train + n_val]).astype(np.int32),
+        "test": np.sort(perm[n_train + n_val:]).astype(np.int32)
+        if num_artists > n_train + n_val
+        else np.sort(perm[n_train:n_train + n_val]).astype(np.int32),
+    }
+
+
+def build_lyrics_corpus(csv_path: str | Path, out_dir: str | Path,
+                        vocab_size: int, max_len: int,
+                        seed: int = 0) -> PackedCorpus:
+    """CSV -> tokens -> vocab -> packed corpus, saved under out_dir."""
+    rows = lyrics_mod.read_lyrics_csv(csv_path)
+    vocab, items = lyrics_mod.tokenize_corpus(rows, vocab_size)
+    corpus = PackedCorpus.pack(items, vocab, max_len, seed)
+    corpus.save(out_dir)
+    return corpus

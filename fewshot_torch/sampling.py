@@ -1,0 +1,135 @@
+"""Few-shot generation: support-primed top-k / nucleus sampling.
+
+Port of the LSTM half of ``fewshot/sampling.py`` (``filtered_sample``, the
+decode loop, ``sample_lstm`` and ``generate``).  Semantics are the JAX
+package's:
+
+  * temperature scales the logits BEFORE top-k truncation;
+  * top_k == 0 means full ancestral sampling; 0 < top_p < 1 also applies
+    nucleus filtering (the smallest set whose probability reaches top_p);
+  * generation starts from BOS after the support prime, and a row emits
+    PAD after its EOS.
+
+Randomness: each row draws its noise from its own ``torch.Generator``, and
+a token is drawn by Gumbel-max (argmax of logits + Gumbel noise, which is a
+draw from softmax(logits)).  A row's tokens therefore depend only on its
+own generator, never on its position in the batch.  JAX's threefry streams
+cannot be reproduced, so the parity tests compare greedy decoding.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fewshot_torch.data.vocab import BOS, EOS, PAD
+from fewshot_torch.models import lm as lm_mod
+from fewshot_torch.models import lstm as lstm_mod
+
+# Early exit tests "every row has emitted EOS" once per this many tokens
+# (each test waits for the device); rows that finished emit PAD meanwhile,
+# so the output is the same as testing every token.
+EXIT_CHECK_EVERY = 8
+
+
+def row_generator(seed: int, stream: int,
+                  device: torch.device | str = "cpu") -> torch.Generator:
+    """A generator for one row: `stream` separates the row's independent
+    uses of its seed (0: episode songs, 1: sampling noise)."""
+    g = torch.Generator(device=device)
+    g.manual_seed((int(seed) * 2 + stream) % 2 ** 63)
+    return g
+
+
+def gumbel_noise(generators, n_tokens: int, vocab: int,
+                 device: torch.device) -> torch.Tensor:
+    """[n_tokens, B, V] Gumbel noise, row b drawn from generators[b]."""
+    u = torch.stack([torch.rand((n_tokens, vocab), generator=g,
+                                device=device) for g in generators], dim=1)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def filter_logits(logits: torch.Tensor, temperature, top_k: int,
+                  top_p: float = 0.0) -> torch.Tensor:
+    """Temperature, then top-k, then nucleus filtering; dropped = -inf.
+
+    temperature: a scalar or a per-row [B] tensor."""
+    logits = logits.float()
+    temperature = torch.as_tensor(temperature, dtype=torch.float32,
+                                  device=logits.device)
+    if temperature.ndim == 1:
+        temperature = temperature[:, None]
+    logits = logits / temperature.clamp(min=1e-6)
+    if 0 < top_k < logits.shape[-1]:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if 0.0 < top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        keep = cum - probs < top_p    # up to and including the crossing one
+        cutoff = sorted_logits.masked_fill(~keep, float("inf")).min(
+            dim=-1, keepdim=True).values
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return logits
+
+
+def filtered_sample(noise: torch.Tensor, logits: torch.Tensor, temperature,
+                    top_k: int, top_p: float = 0.0) -> torch.Tensor:
+    """Token ids [B] from logits [B, V], given Gumbel noise [B, V]."""
+    return torch.argmax(filter_logits(logits, temperature, top_k, top_p)
+                        + noise, dim=-1)
+
+
+def sample_lstm(params, support: torch.Tensor, support_len: torch.Tensor,
+                generators, cfg, n_tokens: int, temperature=None,
+                early_exit: bool = True) -> torch.Tensor:
+    """LSTM few-shot continuation.  support [B, K, L] -> tokens [B, n]."""
+    b = support.shape[0]
+    dev = support.device
+    if len(generators) != b:
+        raise ValueError(f"need one generator per row ({b}), got "
+                         f"{len(generators)}")
+    temp = (torch.full((b,), cfg.temperature, device=dev)
+            if temperature is None
+            else torch.as_tensor(temperature, dtype=torch.float32,
+                                 device=dev).expand(b))
+    dt = lm_mod.compute_dtype(cfg)
+    if cfg.support_mode in ("state", "mean_state"):
+        state = lm_mod.support_state(params, support, support_len, cfg,
+                                     eval_mode=True)
+    else:
+        state = lstm_mod.zero_state(b, cfg.hidden_dim, cfg.num_layers, dev)
+    noise = gumbel_noise(generators, n_tokens, params.out_b.shape[0], dev)
+    tok = torch.full((b,), BOS, dtype=torch.int64, device=dev)
+    done = torch.zeros((b,), dtype=torch.bool, device=dev)
+    toks = torch.full((b, n_tokens), PAD, dtype=torch.int64, device=dev)
+    for i in range(n_tokens):
+        if early_exit and i and i % EXIT_CHECK_EVERY == 0 \
+                and bool(done.all()):
+            break
+        x = lm_mod.embed(params, tok)
+        h, state = lstm_mod.lstm_step(params.lstm, x, state, dt)
+        logits = lm_mod.head_logits(params, h, cfg)
+        nxt = filtered_sample(noise[i], logits, temp, cfg.top_k, cfg.top_p)
+        nxt = nxt.masked_fill(done, PAD)
+        done = done | (nxt == EOS)
+        toks[:, i] = nxt
+        tok = nxt
+    return toks
+
+
+def generate(params, support: torch.Tensor, support_len: torch.Tensor,
+             generators, cfg, n_tokens: int | None = None, temperature=None,
+             early_exit: bool = True) -> torch.Tensor:
+    """Support-conditioned continuations [B, n] (int64 token ids).
+
+    generators: one torch.Generator per row, on the support's device; row
+    i's continuation depends only on generators[i].  temperature: optional
+    scalar or [B] overriding cfg.temperature.  early_exit stops once every
+    row has emitted EOS; the output is the same either way."""
+    lm_mod.check_supported(cfg)
+    n = n_tokens if n_tokens is not None else cfg.sample_tokens
+    with torch.inference_mode():
+        return sample_lstm(params, support, support_len, generators, cfg, n,
+                           temperature, early_exit)

@@ -1,0 +1,334 @@
+"""Serving tier: few-shot continuations over HTTP from one device.
+
+Port of ``fewshot/serve.py`` for LSTM lyrics models.  One process loads the
+corpus and parameters once, warms the sampler, and serves:
+
+    GET  /healthz                    -> {"status": "ok", ...}
+    POST /generate                   -> {"continuations": [...]}
+        {"artist": <name or id>,     # support drawn from this artist, or
+         "episode_seed": 0,          #   a random split artist if omitted
+         "num": 4,                   # continuations (padded to batch size)
+         "temperature": 0.8,         # optional, per request
+         "split": "test"}
+
+Concurrent requests are coalesced by one batching worker thread into a call
+of the fixed batch size; the HTTP layer is the stdlib ThreadingHTTPServer,
+so health checks never wait behind generation.  Each row's episode and
+noise come from generators seeded by the row's own seed, so a request's
+output does not depend on what it was batched with.
+
+Run: ``python -m fewshot_torch.serve --data … --model … --task …
+[--checkpt_dir DIR] [--serve_batch N] [--device cuda|cpu] [--set K=V …]``.
+MIDI grammar masks and multi-GPU serving are later slices of the port.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import queue
+import sys
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from fewshot_torch import sampling as sampling_mod
+from fewshot_torch.data import episodes as eps
+from fewshot_torch.data.lyrics import detokenize
+from fewshot_torch.device import resolve_device
+from fewshot_torch.models import lm as lm_mod
+
+
+class _Request:
+    """One /generate call waiting for its rows of a batched device call."""
+
+    __slots__ = ("num", "artist_id", "split", "seed", "temperature",
+                 "event", "toks", "artists", "latency", "error")
+
+    def __init__(self, num, artist_id, split, seed, temperature):
+        self.num = num
+        self.artist_id = artist_id
+        self.split = split
+        self.seed = seed
+        self.temperature = temperature
+        self.event = threading.Event()
+        self.toks = self.artists = self.latency = self.error = None
+
+
+class Generator:
+    """The warm sampler behind the HTTP handler, with request batching.
+
+    The first queued request opens a window of `batch_deadline_ms`; what
+    arrives in time shares one device call.  Unused rows are padded with
+    the first request's artist and temperature.  device=None means CUDA
+    (and raises without a card)."""
+
+    def __init__(self, cfg, corpus, params, batch_size: int | None = None,
+                 batch_deadline_ms: float = 5.0,
+                 device: torch.device | str | None = None):
+        self.device = resolve_device(device)
+        lm_mod.check_supported(cfg)
+        if cfg.dataset == "midi":
+            raise NotImplementedError(
+                "MIDI serving (grammar masks) is not ported yet")
+        self.cfg = cfg
+        self.corpus = corpus
+        self.batch = batch_size or max(4, cfg.batch_size)
+        self.deadline = batch_deadline_ms / 1e3
+        self.params = params.to(self.device)
+        self.data = eps.put_corpus(corpus, self.device)
+        self.splits = {k: np.asarray(v) for k, v in corpus.splits.items()}
+        self._artist_index = {name: i for i, name
+                              in enumerate(corpus.artist_names)}
+        self._queue: "queue.Queue[_Request | None]" = queue.Queue()
+        self._carry: _Request | None = None
+        self._worker = threading.Thread(target=self._batch_worker,
+                                        daemon=True)
+        self._worker.start()
+        self.warm_s = self._warmup()
+
+    def close(self) -> None:
+        """Stop the batching worker (requests after this never complete)."""
+        self._queue.put(None)
+        self._worker.join(timeout=60)
+
+    # -- device call over fully per-row specs ---------------------------------
+
+    def _run_batch(self, artists: np.ndarray, seeds: np.ndarray,
+                   temps: np.ndarray) -> np.ndarray:
+        ep_gens = [sampling_mod.row_generator(s, 0) for s in seeds]
+        gen_gens = [sampling_mod.row_generator(s, 1, self.device)
+                    for s in seeds]
+        ep = eps.sample_episode_for_artists(
+            ep_gens, self.data, torch.as_tensor(artists),
+            k=self.cfg.support_size, q=self.cfg.query_size)
+        toks = sampling_mod.generate(
+            self.params, ep.support, ep.support_len, gen_gens, self.cfg,
+            temperature=torch.as_tensor(temps, device=self.device))
+        return toks.cpu().numpy()
+
+    def _row_specs(self, req: _Request, rng: np.random.RandomState):
+        """Resolve one request into per-row (artist, seed, temp) arrays."""
+        if req.artist_id is not None:
+            artists = np.full(req.num, req.artist_id, np.int32)
+        else:
+            pool = self.splits[req.split]
+            artists = rng.choice(pool, size=req.num).astype(np.int32)
+        seeds = np.full(req.num, req.seed, np.int64) + np.arange(req.num)
+        temp = (self.cfg.temperature if req.temperature is None
+                else req.temperature)
+        return artists, seeds, np.full(req.num, temp, np.float32)
+
+    def _collect(self, first: _Request) -> list[_Request]:
+        """Requests that share one call: `first` plus what arrives in time."""
+        reqs = [first]
+        rows = first.num
+        deadline = time.perf_counter() + self.deadline
+        while rows < self.batch:
+            remain = deadline - time.perf_counter()
+            if remain <= 0:
+                break
+            try:
+                nxt = self._queue.get(timeout=remain)
+            except queue.Empty:
+                break
+            if nxt is None:                   # close(): finish this batch
+                self._queue.put(None)
+                break
+            if rows + nxt.num > self.batch:
+                self._carry = nxt             # runs in the next batch
+                break
+            reqs.append(nxt)
+            rows += nxt.num
+        return reqs
+
+    def _batch_worker(self) -> None:
+        while True:
+            first = self._carry or self._queue.get()
+            self._carry = None
+            if first is None:
+                return
+            reqs = self._collect(first)
+            try:
+                specs = [self._row_specs(
+                    r, np.random.RandomState(r.seed & 0x7FFFFFFF))
+                    for r in reqs]
+                artists = np.concatenate([s[0] for s in specs])
+                seeds = np.concatenate([s[1] for s in specs])
+                temps = np.concatenate([s[2] for s in specs])
+                pad = self.batch - len(artists)
+                if pad > 0:
+                    artists = np.concatenate([artists,
+                                              np.repeat(artists[:1], pad)])
+                    seeds = np.concatenate([seeds, seeds[:1] + 7777
+                                            + np.arange(pad)])
+                    temps = np.concatenate([temps,
+                                            np.repeat(temps[:1], pad)])
+                t0 = time.perf_counter()
+                toks = self._run_batch(artists, seeds, temps)
+                dt = time.perf_counter() - t0
+                pos = 0
+                for r in reqs:
+                    r.toks = toks[pos:pos + r.num]
+                    r.artists = artists[pos:pos + r.num]
+                    r.latency = dt
+                    pos += r.num
+            except Exception as e:                        # noqa: BLE001
+                # the worker must outlive a failed batch; each waiting
+                # request re-raises the error in its own thread
+                for r in reqs:
+                    r.error = e
+            finally:
+                for r in reqs:
+                    r.event.set()
+
+    def _warmup(self) -> float:
+        t0 = time.perf_counter()
+        self._submit(1, None, next(iter(self.splits)), 0, None)
+        return time.perf_counter() - t0
+
+    def _submit(self, num, artist_id, split, seed, temperature) -> _Request:
+        req = _Request(num, artist_id, split, seed, temperature)
+        self._queue.put(req)
+        req.event.wait()
+        if req.error is not None:
+            raise req.error
+        return req
+
+    def generate(self, num: int, split: str = "test",
+                 artist: str | int | None = None, episode_seed: int = 0,
+                 temperature: float | None = None) -> list[dict]:
+        artist_id = None
+        if artist is not None:
+            if isinstance(artist, str) and not artist.isdigit():
+                if artist not in self._artist_index:
+                    raise KeyError(f"unknown artist {artist!r}")
+                artist_id = self._artist_index[artist]
+            else:
+                artist_id = int(artist)
+                if not 0 <= artist_id < self.corpus.num_artists:
+                    raise KeyError(f"artist id {artist_id} out of range")
+        if split not in self.splits:
+            raise KeyError(f"unknown split {split!r}")
+        num = max(1, min(num, self.batch))
+
+        req = self._submit(num, artist_id, split, episode_seed, temperature)
+        out = []
+        for i in range(num):
+            words = self.corpus.vocab.decode(req.toks[i])
+            a = int(req.artists[i])
+            name = (self.corpus.artist_names[a]
+                    if self.corpus.artist_names else str(a))
+            out.append({"artist": name, "tokens": len(words),
+                        "latency_s": round(req.latency, 4),
+                        "text": detokenize(words)})
+        return out
+
+
+def make_handler(gen: Generator):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):  # quiet
+            pass
+
+        def _reply(self, code: int, payload: dict) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._reply(200, {"status": "ok",
+                                  "model": gen.cfg.model,
+                                  "dataset": gen.cfg.dataset,
+                                  "device": str(gen.device),
+                                  "batch": gen.batch,
+                                  "warmup_s": round(gen.warm_s, 2)})
+            else:
+                self._reply(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path != "/generate":
+                self._reply(404, {"error": "not found"})
+                return
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+                req = json.loads(self.rfile.read(length) or b"{}")
+                temp = req.get("temperature")
+                outs = gen.generate(
+                    num=int(req.get("num", 1)),
+                    split=req.get("split", "test"),
+                    artist=req.get("artist"),
+                    episode_seed=int(req.get("episode_seed", 0)),
+                    temperature=float(temp) if temp is not None else None)
+                self._reply(200, {"continuations": outs})
+            except KeyError as e:
+                self._reply(400, {"error": str(e)})
+            except (TypeError, ValueError) as e:      # incl. JSONDecodeError
+                self._reply(400, {"error": f"bad request: {e}"})
+            except Exception as e:                        # noqa: BLE001
+                # device-side failures must still get an HTTP response,
+                # never a dropped connection
+                self._reply(500, {"error": f"internal error: {e}"})
+
+    return Handler
+
+
+def serve(gen: Generator, host: str = "127.0.0.1", port: int = 8476
+          ) -> ThreadingHTTPServer:
+    return ThreadingHTTPServer((host, port), make_handler(gen))
+
+
+def serve_main(argv=None) -> None:
+    from fewshot_torch.bridge import load_params
+    from fewshot_torch.config import (add_config_flags, load_config,
+                                      parse_overrides)
+    from fewshot_torch.data.corpus import PackedCorpus
+
+    parser = argparse.ArgumentParser()
+    add_config_flags(parser)
+    parser.add_argument("--host", default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=8476)
+    parser.add_argument("--serve_batch", type=int, default=None)
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+    cfg = load_config(args.data, args.model, args.task,
+                      parse_overrides(args.set))
+    corpus_dir = Path(cfg.corpus_dir)
+    if not (corpus_dir / "corpus.npz").exists():
+        sys.exit(f"no packed corpus at {corpus_dir} — run "
+                 f"scripts/prepare_data.py first (see README)")
+    corpus = PackedCorpus.load(corpus_dir)
+    if corpus.max_len != cfg.max_len:
+        print(f"warning: corpus max_len={corpus.max_len} != config "
+              f"max_len={cfg.max_len}; the packed corpus wins", flush=True)
+    if corpus.vocab is not None and len(corpus.vocab) > cfg.vocab_size:
+        sys.exit(f"corpus vocab ({len(corpus.vocab)}) exceeds config "
+                 f"vocab_size ({cfg.vocab_size}); re-pack or raise the cap")
+    device = resolve_device(args.device)
+    if args.checkpt_dir:
+        path = Path(args.checkpt_dir) / "params.npz"
+        if not path.exists():
+            sys.exit(f"no checkpoint found in {args.checkpt_dir}")
+        params = load_params(path, device)
+    else:
+        params = lm_mod.init_lm(cfg, len(corpus.vocab),
+                                torch.Generator().manual_seed(cfg.seed),
+                                device)
+    gen = Generator(cfg, corpus, params, args.serve_batch, device=device)
+    server = serve(gen, args.host, args.port)
+    print(f"serving on http://{args.host}:{args.port} "
+          f"(device {device}, warmup {gen.warm_s:.1f}s, batch {gen.batch})",
+          flush=True)
+    server.serve_forever()
+
+
+if __name__ == "__main__":
+    serve_main()
