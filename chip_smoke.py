@@ -1,21 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+card.
 
 Run from the repository root:  python3 chip_smoke.py
 
 Phases, each of which exits non-zero on failure:
   1. the card's name and power limit (nvidia-smi);
-  2. build the CUDA kernels from fewshot_torch/ops/csrc (nvcc, sm_90a);
+  2. build the CUDA kernels from fewshot_torch/ops/csrc (one nvcc per
+     source, all started together; sm_90a);
   3. each kernel against its plain PyTorch twin at full width (E=256,
-     H=512, 2 layers; bf16 and fp32; ragged masks), with its time (CUDA
-     events), its bound, the twin's time and torch.nn.LSTM (cuDNN) timed
-     at the same shape as a yardstick only;
+     H=512, 2 layers; bf16 and fp32; ragged masks): the two forward
+     kernels (and their train-mode gate activations) and the two backward
+     kernels, with each kernel's time (CUDA events), its bound, the twin's
+     time and torch.nn.LSTM (cuDNN; forward, or forward and backward for
+     the backward kernels) timed at the same shape as a yardstick only;
   4. serving phase A, the bench config (support_mode=mean_state, batch 32,
      the per-layer kernel): an HTTP server answers concurrent /generate
      requests; the per-layer kernel's launch count must rise;
   5. serving phase B, the shipped config (support_mode=state, batch 16,
      the fused-stack kernel); the fused kernel's launch count must rise;
-  6. a {"kernels": [...]} line, then the {"ok": true, ...} line.
+  6. training phase A, the bench config as bench.py trains it (B=32, 10
+     steps per call, 2 warm-up calls, 4 timed calls): episodes/s, the
+     loss of the first step and of the first and last calls (finite; the
+     last call's below the first step's), one step's device idle share,
+     one step's grads against the plain route; the per-layer forward and
+     backward kernels' launch counts must rise;
+  7. training phase B, the shipped config (support_mode=state, B=16): the
+     fused-stack forward and backward kernels' counts must rise;
+  8. the card line, a {"kernels": [...]} line, then the {"ok": true, ...}
+     line.
 
 Weights are random from a seed; the corpus is the synthetic bench corpus
 built offline in a temporary directory.  fp32 matmuls run in full fp32
@@ -42,10 +55,27 @@ import torch
 E, H, LAYERS = 256, 512, 2
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}   # H100 SXM
 PEAK_BYTES = 3.35e12                                           # HBM3, B/s
-TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (3e-2, 2e-2)}
+# forward kernels against their twins, absolute, on (ys, cs, hT, cT): bf16
+# streams and state can differ by one bf16 step near 1 when an fp32 sum
+# lands on the other side of a rounding tie; fp32 only in summation order
+FWD_TOL = {torch.float32: [1e-4] * 4, torch.bfloat16: [3e-2, 3e-2, 2e-2, 2e-2]}
+GATES_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# backward kernels against their twins, relative to each output's largest
+# magnitude (dzx, dh0, dc0, db): the same rounding points on both sides; a
+# bf16 tie flipped by the order of an fp32 sum moves one dz by 2^-8 and the
+# flip travels back through the remaining steps
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 STATE_TOL = 2e-2        # support state, kernel route vs plain route (bf16)
+# one train step's grads, kernel route vs the plain route (cell="scan",
+# autograd through the step loop), relative to each leaf's largest
+# magnitude: the routes round at different points in bf16 (kernels: bf16
+# gates/cs streams, dz rounded before dz.Wh^T; plain: fp32 c, the product's
+# grad rounded after), ~2^-9 per rounding over 95-480 steps, and the
+# embedding's scatter-add sums in a run-dependent order
+GRAD_TOL = 5e-2
 KERNEL_REPS, PLAIN_REPS = 20, 3
 ROUNDS = 3              # rounds of 7 requests per serving phase
+TRAIN_WARMUP, TRAIN_CALLS = 2, 4    # calls of steps_per_call steps
 
 
 def log(msg: str) -> None:
@@ -88,21 +118,27 @@ def host_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
-def device_busy_ms(fn) -> float | None:
+def device_busy_ms(fn, top: int = 0):
     """Device kernel time summed over one call of fn (torch.profiler);
-    None when the profiler shows no device time."""
+    None when the profiler shows no device time.  With top > 0, returns
+    (busy ms, [(kernel name, device ms, calls)] of the `top` largest)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if getattr(e, "device_type", None) == DeviceType.CUDA)
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events)
     if total <= 0:
         log("  profiler: no device time recorded (not measured)")
-        return None
-    return total / 1e3
+        return (None, []) if top else None
+    if not top:
+        return total / 1e3
+    events.sort(key=lambda e: -e.self_device_time_total)
+    return total / 1e3, [(e.key[:80], e.self_device_time_total / 1e3,
+                          e.count) for e in events[:top]]
 
 
 # ---------------------------------------------------------------------------
@@ -120,8 +156,10 @@ def ragged_mask(gen, steps: int, rows: int, songs: int) -> torch.Tensor:
     return live.reshape(rows, steps).T[..., None].float().contiguous()
 
 
-def cudnn_lstm_ms(wh, b, steps, rows, in_dim, layers, dtype):
-    """torch.nn.LSTM (cuDNN) at the same shape: the yardstick only.
+def cudnn_lstm_ms(wh, b, steps, rows, in_dim, layers, dtype,
+                  backward=False):
+    """torch.nn.LSTM (cuDNN) at the same shape: the yardstick only; with
+    backward, its forward and backward (input and weight grads) together.
 
     Gates permuted from (i, j, f, o) to PyTorch's (i, f, g, o), forget bias
     folded into bias_ih.  It also projects its input (the kernels take
@@ -140,8 +178,16 @@ def cudnn_lstm_ms(wh, b, steps, rows, in_dim, layers, dtype):
             getattr(lstm, f"bias_ih_l{l}").copy_(bl[perm])
             getattr(lstm, f"bias_hh_l{l}").zero_()
     lstm.flatten_parameters()
-    x = torch.randn(steps, rows, in_dim, device=dev, dtype=dtype)
+    x = torch.randn(steps, rows, in_dim, device=dev, dtype=dtype,
+                    requires_grad=backward)
+
+    def fwd_bwd():
+        out, _ = lstm(x)
+        out.backward(torch.ones_like(out))
+
     try:
+        if backward:
+            return cuda_ms(fwd_bwd, KERNEL_REPS)
         with torch.no_grad():
             return cuda_ms(lambda: lstm(x), KERNEL_REPS)
     except RuntimeError as e:            # no cuDNN LSTM for this dtype
@@ -156,41 +202,64 @@ def bound(byte_count: float, ops: float, dtype) -> tuple[float, str]:
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def check_kernel(name, wrapper, plain, args, live_steps, extra_matmuls,
-                 dtype, library):
-    """Run kernel and twin on the same inputs; returns the record."""
+def max_rel(got, want) -> tuple[float, float]:
+    """(max abs error, max abs error / max |want|) of two tensors."""
+    err = float((got.float() - want.float()).abs().max()) if got.numel() \
+        else 0.0
+    scale = float(want.float().abs().max()) if want.numel() else 0.0
+    return err, err / max(scale, 1e-30)
+
+
+def check_kernel(name, wrapper, plain, args, tols, relative, ops, dtype,
+                 library, kw=None):
+    """Run kernel and twin on the same inputs; returns the record.
+
+    tols: one tolerance per output, absolute or (relative=True) relative to
+    the output's largest magnitude; ops: the products this run's data
+    needs (masked steps need none)."""
+    kw = kw or {}
     with torch.no_grad():
-        got = wrapper(*args)
-        want = plain(*args)
+        got = wrapper(*args, **kw)
+        want = plain(*args, **kw)
         torch.cuda.synchronize()
-        errs = [float((g.float() - w.float()).abs().max())
-                for g, w in zip(got, want)]
+        errs = [max_rel(g, w) for g, w in zip(got, want)]
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
-        tol_s, tol_h = TOL[dtype]
-        ok = (finite and max(errs[:2]) <= tol_s and max(errs[2:]) <= tol_h)
-        ms = cuda_ms(lambda: wrapper(*args), KERNEL_REPS)
-        plain_ms = cuda_ms(lambda: plain(*args), PLAIN_REPS, warmup=1)
-    zx = args[0]
-    t_, b_, four_h = zx.shape
+        checked = [e[1] if relative else e[0] for e in errs]
+        ok = finite and all(e <= t for e, t in zip(checked, tols))
+        ms = cuda_ms(lambda: wrapper(*args, **kw), KERNEL_REPS)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw), PLAIN_REPS, warmup=1)
     in_bytes = sum(a.numel() * a.element_size() for a in args)
     out_bytes = sum(g.numel() * g.element_size() for g in got)
-    # the products a real step needs: h . Wh per layer, plus x . Wx for
-    # the layers the kernel projects; PAD steps need none
-    ops = 2.0 * live_steps * (four_h // 4) * four_h * extra_matmuls
     bound_ms, bound_by = bound(in_bytes + out_bytes, ops, dtype)
     rec = {"name": name, "dtype": str(dtype).replace("torch.", ""),
-           "shape": {"steps": t_, "rows": b_, "hidden": four_h // 4},
-           "max_abs_err": max(errs), "tolerance": [tol_s, tol_h],
-           "errors_ys_cs_hT_cT": errs, "parity": ok, "ms": ms,
+           "shape": list(args[0].shape),
+           "max_abs_err": max(e[0] for e in errs),
+           "errors": [e[0] for e in errs],
+           "rel_errors": [e[1] for e in errs], "tolerance": tols,
+           "tolerance_relative": relative, "parity": ok, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": library()}
-    log(f"  {name} {rec['dtype']}: max_abs_err {max(errs):.3g} "
-        f"(tol {tol_s}/{tol_h}) parity={ok} kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, bound {bound_ms:.4f} ms ({bound_by}), cuDNN "
-        f"{rec['library_ms']}")
+    log(f"  {name} {rec['dtype']}: errors {checked} (tol {tols}, "
+        f"{'relative' if relative else 'absolute'}) parity={ok} kernel "
+        f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"({bound_by}), cuDNN {rec['library_ms']}")
     if not ok:
         raise RuntimeError(f"{name} {dtype} disagrees with its twin: {errs}")
     return rec
+
+
+def gates_err(name, wrapper, plain, args, dtype) -> float:
+    """The train-mode forward's gate activations against the twin's."""
+    with torch.no_grad():
+        got = wrapper(*args, save_gates=True)
+        want = plain(*args, save_gates=True)
+        torch.cuda.synchronize()
+    err = max(max_rel(g, w)[0] for g, w in zip(got, want))
+    log(f"  {name} {dtype} save_gates: max abs err over the 5 outputs "
+        f"{err:.3g} (tol {GATES_TOL[dtype]})")
+    if not err <= GATES_TOL[dtype]:
+        raise RuntimeError(f"{name} {dtype} gates disagree: {err}")
+    return err
 
 
 def kernel_phase(dev) -> dict:
@@ -206,33 +275,68 @@ def kernel_phase(dev) -> dict:
 
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
-        # kernel 1: mean_state support pass, 32 episodes x 5 songs, L=96
+        # kernels 1 and 2: mean_state support pass, 32 episodes x 5 songs,
+        # L=96
         t_, rows = 96, 160
         mask = ragged_mask(gen, t_, rows, 1).to(dev)
+        live = float(mask.sum())
         args = (rand(t_, rows, 4 * H, scale=0.6).to(dtype),
                 unif(H, 4 * H).to(dtype), rand(4 * H, scale=0.1), mask,
                 rand(rows, H, scale=0.5), rand(rows, H, scale=0.5))
+        yard = lambda: cudnn_lstm_ms(args[1], args[2], t_, rows, H, 1,  # noqa
+                                     dtype)
         records[("layer", dtype)] = check_kernel(
             "lstm_layer_fwd", lstm_layer.lstm_layer_fwd,
-            lstm_layer.lstm_layer_fwd_plain, args, float(mask.sum()), 1,
-            dtype, lambda: cudnn_lstm_ms(args[1], args[2], t_, rows, H, 1,
-                                         dtype))
-        # kernel 3: state support pass, 16 episodes x 5 songs x L=96
+            lstm_layer.lstm_layer_fwd_plain, args, FWD_TOL[dtype], False,
+            2.0 * live * H * 4 * H, dtype, yard)
+        records[("layer", dtype)]["gates_max_abs_err"] = gates_err(
+            "lstm_layer_fwd", lstm_layer.lstm_layer_fwd,
+            lstm_layer.lstm_layer_fwd_plain, args, dtype)
+        with torch.no_grad():
+            _, cs, _, _, gates = lstm_layer.lstm_layer_fwd(*args,
+                                                           save_gates=True)
+        bargs = (gates, args[1], mask, cs, args[5],
+                 rand(t_, rows, H).to(dtype), rand(rows, H), rand(rows, H))
+        records[("layer_bwd", dtype)] = check_kernel(
+            "lstm_layer_bwd", lstm_layer.lstm_layer_bwd,
+            lstm_layer.lstm_layer_bwd_plain, bargs, [BWD_TOL[dtype]] * 4,
+            True, 2.0 * live * H * 4 * H, dtype,
+            lambda: cudnn_lstm_ms(args[1], args[2], t_, rows, H, 1, dtype,
+                                  backward=True))
+        # kernels 3 and 4: state support pass, 16 episodes x 5 songs x L=96
         t_, rows = 480, 16
         mask = ragged_mask(gen, t_, rows, 5).to(dev)
+        live = float(mask.sum())
         args = (rand(t_, rows, 4 * H, scale=0.6).to(dtype),
                 unif(LAYERS - 1, H, 4 * H).to(dtype),
                 unif(LAYERS, H, 4 * H).to(dtype),
                 rand(LAYERS, 4 * H, scale=0.1), mask,
                 rand(LAYERS, rows, H, scale=0.5),
                 rand(LAYERS, rows, H, scale=0.5))
-        # layer 0: h.Wh; layers >= 1: x.Wx + h.Wh
+        # per live step: h.Wh for every layer, x.Wx for layers >= 1 (the
+        # backward: dz.Wh^T and dz.Wx^T, the same count)
+        ops = 2.0 * live * H * 4 * H * (2 * LAYERS - 1)
+        yard = lambda: cudnn_lstm_ms(args[2], args[3], t_, rows, E,  # noqa
+                                     LAYERS, dtype)
         records[("stack", dtype)] = check_kernel(
             "lstm_stack_fwd", lstm_stack.lstm_stack_fwd,
-            lstm_stack.lstm_stack_fwd_plain, args, float(mask.sum()),
-            2 * LAYERS - 1, dtype,
+            lstm_stack.lstm_stack_fwd_plain, args, FWD_TOL[dtype], False,
+            ops, dtype, yard)
+        records[("stack", dtype)]["gates_max_abs_err"] = gates_err(
+            "lstm_stack_fwd", lstm_stack.lstm_stack_fwd,
+            lstm_stack.lstm_stack_fwd_plain, args, dtype)
+        with torch.no_grad():
+            _, cs, _, _, gates = lstm_stack.lstm_stack_fwd(*args,
+                                                           save_gates=True)
+        bargs = (gates, args[1], args[2], mask, cs, args[6],
+                 rand(t_, rows, H).to(dtype), rand(LAYERS, rows, H),
+                 rand(LAYERS, rows, H))
+        records[("stack_bwd", dtype)] = check_kernel(
+            "lstm_stack_bwd", lstm_stack.lstm_stack_bwd,
+            lstm_stack.lstm_stack_bwd_plain, bargs, [BWD_TOL[dtype]] * 4,
+            True, ops, dtype,
             lambda: cudnn_lstm_ms(args[2], args[3], t_, rows, E, LAYERS,
-                                  dtype))
+                                  dtype, backward=True))
     return records
 
 
@@ -261,13 +365,13 @@ def post(url: str, payload: dict) -> tuple[int, dict, float]:
 
 def serving_phase(label, cfg, corpus, dev, counter) -> dict:
     from fewshot_torch.models import lm
-    from fewshot_torch.ops import lstm_layer, lstm_stack
     from fewshot_torch.serve import Generator, serve
 
     params = lm.init_lm(cfg, len(corpus.vocab),
                         torch.Generator().manual_seed(cfg.seed), dev)
-    lstm_layer.lstm_layer_fwd.launches = 0
-    lstm_stack.lstm_stack_fwd.launches = 0
+    kernel_counters = counters()
+    for fn in kernel_counters.values():
+        fn.launches = 0
     gen = Generator(cfg, corpus, params, batch_size=cfg.batch_size,
                     device=dev)
     srv = serve(gen, host="127.0.0.1", port=0)
@@ -302,8 +406,7 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
     finally:
         srv.shutdown()
         srv.server_close()
-    launches = {"lstm_layer_fwd": lstm_layer.lstm_layer_fwd.launches,
-                "lstm_stack_fwd": lstm_stack.lstm_stack_fwd.launches}
+    launches = {n: fn.launches for n, fn in kernel_counters.items()}
 
     tokens = 0
     for payload, (status, body, _) in zip(payloads, results):
@@ -372,12 +475,136 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 6-7: training
+# ---------------------------------------------------------------------------
+
+def counters() -> dict:
+    """Every kernel wrapper by name; each counts its launches."""
+    from fewshot_torch.ops import lstm_layer, lstm_stack
+    return {"lstm_layer_fwd": lstm_layer.lstm_layer_fwd,
+            "lstm_layer_bwd": lstm_layer.lstm_layer_bwd,
+            "lstm_stack_fwd": lstm_stack.lstm_stack_fwd,
+            "lstm_stack_bwd": lstm_stack.lstm_stack_bwd}
+
+
+def grad_check(cfg, params, ep) -> dict:
+    """One step's grads through the kernels against the plain route
+    (cell="scan") on the same episode and parameters: max |diff| / max
+    |plain| per leaf."""
+    from fewshot_torch.models import lm
+
+    def grads(c):
+        for p in params.parameters():
+            p.grad = None
+        total, _ = lm.episodic_nll_stats(params, ep, c)
+        total.backward()
+        out = {k: p.grad.float().clone()
+               for k, p in params.named_parameters()}
+        for p in params.parameters():
+            p.grad = None
+        return out
+
+    fast = grads(cfg)
+    slow = grads(dataclasses.replace(cfg, cell="scan"))
+    return {k: max_rel(fast[k], slow[k])[1] for k in slow}
+
+
+def training_phase(label, cfg, corpus, dev, must_rise) -> dict:
+    """The train step at cfg, dispatched steps_per_call steps per call as
+    bench.py does: 2 warm-up calls, then 4 timed calls."""
+    from fewshot_torch import training
+    from fewshot_torch.data import episodes as eps
+
+    data = eps.put_corpus(corpus, dev)
+    split = torch.as_tensor(np.asarray(corpus.splits["train"]),
+                            dtype=torch.int64, device=dev)
+    state = training.init_train_state(cfg, len(corpus.vocab), device=dev)
+    one_step = training.make_train_step(cfg, data, split)
+    step = training.make_multi_step(one_step, cfg.steps_per_call)
+    # the first warm-up call runs as its single steps (the same trajectory,
+    # make_multi_step's contract) to read the untrained first step's loss
+    for i in range(cfg.steps_per_call):
+        state, m = one_step(state)
+        if i == 0:
+            first_step = float(m["loss"])
+    losses = [float(m["loss"])]
+    for _ in range(TRAIN_WARMUP - 1):
+        state, m = step(state)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    kernel_counters = counters()
+    for fn in kernel_counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_CALLS):
+        state, m = step(state)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernel_counters.items()}
+    losses.append(float(m["loss"]))
+    steps = TRAIN_CALLS * cfg.steps_per_call
+    if not np.isfinite(losses + [first_step]).all() \
+            or not losses[-1] < first_step:
+        raise RuntimeError(f"{label}: loss not finite and falling: "
+                           f"{first_step} then {losses}")
+    for n in must_rise:
+        if launches[n] == 0:
+            raise RuntimeError(f"{label}: {n} never launched: {launches}")
+
+    # where one step's time goes: host wall (synchronized) and device busy
+    def one():
+        nonlocal state
+        state, _ = one_step(state)
+
+    step_ms = host_ms(one)
+    busy_ms, top = device_busy_ms(one, top=8)
+
+    ep = eps.sample_episode(torch.Generator(device=dev).manual_seed(123),
+                            data, split, cfg.batch_size,
+                            k=cfg.support_size, q=cfg.query_size)
+    grad_err = grad_check(cfg, state.params, ep)
+    worst = max(grad_err.values())
+    if not worst <= GRAD_TOL:
+        raise RuntimeError(f"{label}: grads off the plain route: {grad_err}")
+    rec = {"phase": label, "support_mode": cfg.support_mode,
+           "batch": cfg.batch_size, "steps_per_call": cfg.steps_per_call,
+           "timed_steps": steps, "wall_s": wall,
+           "episodes_per_s": steps * cfg.batch_size / wall,
+           "step_ms": step_ms, "step_device_busy_ms": busy_ms,
+           "step_device_idle_share": (None if busy_ms is None
+                                      else 1.0 - busy_ms / step_ms),
+           "step_device_top_kernels": top,
+           "loss_first_step": first_step, "loss_first_call": losses[0],
+           "loss_last_call": losses[-1],
+           "launches": launches,
+           "launches_per_step": {n: v / steps for n, v in launches.items()},
+           "grad_rel_err_vs_plain": grad_err, "grad_tol": GRAD_TOL}
+    log(f"{label}: {json.dumps(rec)}")
+    return rec
+
+
+def build_all() -> None:
+    """Build every kernel source in parallel (one nvcc each), then load."""
+    from fewshot_torch.ops import _ext
+    t0 = time.perf_counter()
+    with futures.ThreadPoolExecutor(len(_ext.SIGNATURES)) as ex:
+        list(ex.map(_ext.build, _ext.SIGNATURES))
+    for name in _ext.SIGNATURES:
+        _ext.load(name)
+    log(f"build: {', '.join(_ext.SIGNATURES)} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name in _ext.SIGNATURES:
+        for line in _ext.build_log.get(name, "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas {name}: {line.strip()}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from fewshot_torch.config import Config
-    from fewshot_torch.ops import _ext
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -387,13 +614,7 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
-
-    t0 = time.perf_counter()
-    _ext.load("lstm_fwd")
-    log(f"build: lstm_fwd in {time.perf_counter() - t0:.1f} s")
-    for line in _ext.build_log.get("lstm_fwd", "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    build_all()
 
     log("kernels vs plain twins (full width):")
     records = kernel_phase(dev)
@@ -406,37 +627,52 @@ def main() -> int:
                   hidden_dim=H, num_layers=LAYERS, support_size=5,
                   query_size=5, cell="pallas", compute_dtype="bfloat16",
                   sample_tokens=128, top_k=40, seed=0)
-    phase_a = serving_phase(
-        "serving_A", dataclasses.replace(base, support_mode="mean_state",
-                                         batch_size=32),
-        corpus, dev, "lstm_layer_fwd")
-    phase_b = serving_phase(
-        "serving_B", dataclasses.replace(base, support_mode="state",
-                                         batch_size=16),
-        corpus, dev, "lstm_stack_fwd")
+    bench = dataclasses.replace(base, support_mode="mean_state",
+                                batch_size=32)
+    shipped = dataclasses.replace(base, support_mode="state", batch_size=16)
+    serve_a = serving_phase("serving_A", bench, corpus, dev, "lstm_layer_fwd")
+    serve_b = serving_phase("serving_B", shipped, corpus, dev,
+                            "lstm_stack_fwd")
+    train_a = training_phase(
+        "training_A", dataclasses.replace(bench, steps_per_call=10), corpus,
+        dev, ("lstm_layer_fwd", "lstm_layer_bwd"))
+    train_b = training_phase(
+        "training_B", dataclasses.replace(shipped, steps_per_call=10),
+        corpus, dev, ("lstm_stack_fwd", "lstm_stack_bwd"))
 
-    meta = {
-        "lstm_layer_fwd": ("fewshot/ops/lstm_pallas.py:122", phase_a),
-        "lstm_stack_fwd": ("fewshot/ops/lstm_fused.py:88", phase_b),
+    meta = {  # key, csrc source, TPU kernel, the slice's path, serving path
+        "lstm_layer_fwd": ("layer", "lstm_fwd.cu",
+                           "fewshot/ops/lstm_pallas.py:122", train_a,
+                           serve_a),
+        "lstm_layer_bwd": ("layer_bwd", "lstm_bwd.cu",
+                           "fewshot/ops/lstm_pallas.py:239", train_a, None),
+        "lstm_stack_fwd": ("stack", "lstm_fwd.cu",
+                           "fewshot/ops/lstm_fused.py:88", train_b, serve_b),
+        "lstm_stack_bwd": ("stack_bwd", "lstm_bwd.cu",
+                           "fewshot/ops/lstm_fused.py:200", train_b, None),
     }
     kernels = []
-    for key, name in (("layer", "lstm_layer_fwd"),
-                      ("stack", "lstm_stack_fwd")):
-        replaces, phase = meta[name]
+    for name, (key, src, replaces, phase, serve) in meta.items():
         r = records[(key, torch.bfloat16)]
         f = records[(key, torch.float32)]
-        kernels.append({
+        rec = {
             "name": name, "route": "cuda",
-            "source": "fewshot_torch/ops/csrc/lstm_fwd.cu",
+            "source": f"fewshot_torch/ops/csrc/{src}",
             "replaces": replaces, "launches": phase["launches"][name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "dtype": "bfloat16", "shape": r["shape"],
             "parity": r["parity"] and f["parity"],
+            "launches_per_train_step": phase["launches_per_step"][name],
             "fp32": {k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
-                                       "library_ms")}})
+                                       "library_ms")}}
+        if serve is not None:
+            rec["launches_serving"] = serve["launches"][name]
+            rec["gates_max_abs_err"] = [r["gates_max_abs_err"],
+                                        f["gates_max_abs_err"]]
+        kernels.append(rec)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,12 +1,18 @@
-"""Parameters between the JAX tree (as numpy arrays) and the port, and the
-port's checkpoint file.
+"""Parameters and optimizer state between the JAX trees (as numpy arrays)
+and the port, and the port's checkpoint file.
 
 The JAX package's LSTM parameter tree (``fewshot/models/lm.py`` init_lm) is
 ``embed``, ``lstm[l].{wx, wh, b}``, ``out_proj`` or ``out_w``, and
 ``out_b``.  The port keeps the same layouts (wx [in, 4H], wh [H, 4H]), so
-conversion copies arrays and transposes nothing.  ``params.npz`` holds the
-same arrays under flat names (``lstm.0.wx``); it is what ``--checkpt_dir``
-points at.
+conversion copies arrays and transposes nothing.  The port names a tensor
+by its flat path (``lstm.0.wx``, the module's parameter name); ``params.npz``
+holds the arrays under those names and is what ``--checkpt_dir`` points at.
+
+optax's ``ScaleByAdamState`` (count, mu, nu; mu and nu are trees shaped like
+the parameters) converts to the port's ``training.OptState`` and back, so a
+run can continue from the other package's state.  The port keeps one count
+for the bias correction and the learning-rate schedule; optax's schedule
+state counts the same updates.
 """
 
 from __future__ import annotations
@@ -60,22 +66,55 @@ def params_to_numpy(params: LSTMLM) -> dict:
     return tree
 
 
-def save_params(params: LSTMLM, path: str | Path) -> None:
-    tree = params_to_numpy(params)
+def flatten(tree: dict) -> dict:
+    """{flat name: array} of a JAX LSTM tree (``lstm.0.wx`` ...)."""
     flat = {k: v for k, v in tree.items() if k != "lstm"}
     for i, layer in enumerate(tree["lstm"]):
         for k, v in layer.items():
             flat[f"lstm.{i}.{k}"] = v
+    return flat
+
+
+def unflatten(flat: dict) -> dict:
+    """The JAX LSTM tree of {flat name: array}."""
+    n_layers = len({k.split(".")[1] for k in flat if k.startswith("lstm.")})
+    tree = {k: v for k, v in flat.items() if not k.startswith("lstm.")}
+    tree["lstm"] = [{k: flat[f"lstm.{i}.{k}"] for k in ("wx", "wh", "b")}
+                    for i in range(n_layers)]
+    return tree
+
+
+def save_params(params: LSTMLM, path: str | Path) -> None:
     Path(path).parent.mkdir(parents=True, exist_ok=True)
-    np.savez(path, **flat)
+    np.savez(path, **flatten(params_to_numpy(params)))
 
 
 def load_params(path: str | Path, device: torch.device | str | None = None
                 ) -> LSTMLM:
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
-    n_layers = len({k.split(".")[1] for k in flat if k.startswith("lstm.")})
-    tree = {k: v for k, v in flat.items() if not k.startswith("lstm.")}
-    tree["lstm"] = [{k: flat[f"lstm.{i}.{k}"] for k in ("wx", "wh", "b")}
-                    for i in range(n_layers)]
-    return params_from_numpy(tree, device)
+    return params_from_numpy(unflatten(flat), device)
+
+
+def adam_state_from_numpy(count, mu: dict, nu: dict,
+                          device: torch.device | str | None = None):
+    """The port's Adam state from optax's ScaleByAdamState fields as numpy
+    (count a scalar, mu and nu trees shaped like the parameters)."""
+    from fewshot_torch.training import OptState
+    dev = resolve_device(device)
+
+    def put(tree):
+        return {k: _tensor(v).to(dev) for k, v in flatten(tree).items()}
+
+    return OptState(torch.tensor(int(np.asarray(count)), dtype=torch.int64,
+                                 device=dev), put(mu), put(nu))
+
+
+def adam_state_to_numpy(state) -> tuple[np.ndarray, dict, dict]:
+    """(count int32, mu tree, nu tree) as numpy, optax's layout."""
+    def arr(t):
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    return (np.int32(int(state.count)),
+            unflatten({k: arr(v) for k, v in state.mu.items()}),
+            unflatten({k: arr(v) for k, v in state.nu.items()}))

@@ -1,15 +1,23 @@
-"""Episode assembly: per-row song choice, then one gather on the device.
+"""Episode assembly: song choice, then one gather on the device.
 
 Port of ``fewshot/data/episodes.py`` (``put_corpus``, ``_choose_songs``,
-``sample_episode_for_artists``, ``gather_episode``).  The packed corpus is
-moved to the device once; an episode is then a gather of song rows.
+``sample_episode``, ``sample_episode_for_artists``, ``sample_lm_batch``,
+``gather_episode``).  The packed corpus is moved to the device once; an
+episode is then a gather of song rows.
 
 Song choice follows the JAX sampler's semantics: an artist with at least
 K+Q songs gives K+Q distinct songs, uniformly without replacement; for an
 artist with fewer, the first n ranks are a permutation of its n songs and
-the overflow ranks draw with replacement.  Each row draws from its own
-``torch.Generator`` (a CPU generator, so a seed picks the same songs on any
-device), which makes a row's episode independent of its batch neighbours.
+the overflow ranks draw with replacement.
+
+Two samplers.  Serving (``sample_episode_for_artists``) draws each row from
+its own CPU ``torch.Generator``, so a seed picks the same songs on any
+device and a row's episode is independent of its batch neighbours.
+Training (``sample_episode``) runs as torch ops on the corpus device from
+one generator on that device: a uniform artist of the split, then the
+top-(K+Q) of Gumbel noise over the artist's valid song slots, with no host
+synchronisation, so a train step can later be captured in a CUDA graph.
+The random numbers differ from JAX's threefry streams for the same seed.
 """
 
 from __future__ import annotations
@@ -80,6 +88,56 @@ def sample_episode_for_artists(generators: Sequence[torch.Generator],
     slots = slots.to(data.songs.device)
     song_ids = data.artist_song_ids[artists[:, None], slots]   # [B, k+q]
     return gather_episode(data, song_ids, artists, k, q)
+
+
+def sample_episode(gen: torch.Generator, data: CorpusOnDevice,
+                   split_artists: torch.Tensor, batch_size: int, *, k: int,
+                   q: int) -> Episode:
+    """A meta-batch of episodes, sampled on the corpus device.
+
+    gen: a generator on the corpus device; split_artists [A_split] int64
+    artist ids on that device.  Per row: a uniform artist of the split,
+    then K+Q song slots as the top of masked Gumbel noise (distinct, uniform
+    without replacement); ranks past the artist's song count draw uniformly
+    with replacement.  Returns an Episode with support [B,k,L], query
+    [B,q,L]."""
+    n_songs = k + q
+    width = data.artist_song_ids.shape[1]
+    if n_songs > width:
+        raise ValueError(
+            f"episode needs k+q={n_songs} songs but the corpus's largest "
+            f"artist has only {width}")
+    dev = data.songs.device
+    pick = torch.randint(0, split_artists.shape[0], (batch_size,),
+                         generator=gen, device=dev)
+    artists = split_artists[pick]                               # [B]
+    rows = data.artist_song_ids[artists]                        # [B, M]
+    n = data.artist_num_songs[artists]                          # [B]
+    u = torch.rand((batch_size, width), generator=gen, device=dev)
+    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
+    slot_ids = torch.arange(width, device=dev)
+    scores = torch.where(slot_ids < n[:, None], gumbel,
+                         torch.full_like(gumbel, -float("inf")))
+    slots = scores.topk(n_songs, dim=1).indices                 # [B, k+q]
+    # overflow ranks (fewer than k+q songs): uniform with replacement
+    u = torch.rand((batch_size, n_songs), generator=gen, device=dev)
+    n_valid = n.clamp_min(1)[:, None]
+    fallback = torch.minimum((u * n_valid).long(), n_valid - 1)
+    ranks = torch.arange(n_songs, device=dev)
+    slots = torch.where(ranks < n[:, None], slots, fallback)
+    song_ids = rows.gather(1, slots)
+    return gather_episode(data, song_ids, artists, k, q)
+
+
+def sample_lm_batch(gen: torch.Generator, data: CorpusOnDevice,
+                    song_pool: torch.Tensor, batch_size: int
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A plain LM batch: B songs uniform over a split's song pool, on the
+    corpus device.  Returns (tokens [B, L], lengths [B])."""
+    pick = torch.randint(0, song_pool.shape[0], (batch_size,), generator=gen,
+                         device=data.songs.device)
+    ids = song_pool[pick]
+    return data.songs[ids], data.song_len[ids]
 
 
 def gather_episode(data: CorpusOnDevice, song_ids: torch.Tensor,

@@ -1,12 +1,16 @@
-"""Language-model head and LSTM episodic conditioning.
+"""Language-model head, losses and LSTM episodic conditioning.
 
 Port of the LSTM, no-cache part of ``fewshot/models/lm.py``: ``init_lm``
 with the same parameter tree, ``embed``, the embedding fold
 ``_lstm_embed``, ``head_logits`` with its [H, V] pre-contract gate,
-``shift_targets`` and ``support_state`` for ``state`` and ``mean_state``.
-Every matmul that the JAX code runs at the compute dtype with fp32
-accumulation goes through ``models.lstm.matmul_f32``, which reproduces it.
-The transformer, the neural-cache head and the finetune variant are later
+``lm_logits``, ``token_nll`` (both branches), ``sequence_nll``,
+``shift_targets``, ``lm_nll_stats``, ``support_state`` and
+``episodic_nll_stats`` for ``state`` and ``mean_state``.  Every matmul that
+the JAX code runs at the compute dtype with fp32 accumulation goes through
+``models.lstm.matmul_f32``, which reproduces it, gradients included (the
+grad of a rounded operand is rounded to the compute dtype, as JAX's dot
+transpose does).  The transformer, the neural-cache head, the fused
+head+CE kernels, the finetune variant and dropout in training are later
 slices of the port and raise ``NotImplementedError``.
 """
 
@@ -61,6 +65,23 @@ def check_supported(cfg) -> None:
     if cfg.support_mode == "finetune":
         raise NotImplementedError(
             "support_mode='finetune' is not ported yet (a later slice)")
+
+
+def check_fused_head(params: LSTMLM, cfg) -> None:
+    """Raise where the JAX package scores with the fused head+CE kernels
+    (V > 1024 under cell='pallas', a lane-aligned head width): they are a
+    later slice (the cache-head slice)."""
+    d = params.embed.shape[1] if cfg.tie_embeddings else params.out_w.shape[0]
+    if (cfg.cell == "pallas" and _vocab(params, cfg) > ONEHOT_VOCAB_MAX
+            and d % 128 == 0):
+        raise NotImplementedError(
+            "the fused head+CE kernels (V > 1024 with cell='pallas') are not "
+            "ported yet (the cache-head slice)")
+
+
+def _vocab(params: LSTMLM, cfg) -> int:
+    return (params.embed.shape[0] if cfg.tie_embeddings
+            else params.out_w.shape[1])
 
 
 def _glorot(shape, generator: torch.Generator) -> torch.Tensor:
@@ -145,6 +166,59 @@ def shift_targets(tokens: torch.Tensor, lengths: torch.Tensor):
     return tokens[..., :-1], tokens[..., 1:], mask
 
 
+def lm_logits(params: LSTMLM, tokens: torch.Tensor, cfg,
+              mask: torch.Tensor | None = None, state=None,
+              eval_mode: bool = False):
+    """tokens [B, T] -> (logits [B, T, V] fp32, final per-layer state).
+
+    eval_mode: the caller will not differentiate (admits the forward-only
+    fused stack, as in the JAX package).  No dropout: train mode with
+    cfg.dropout > 0 raises."""
+    check_supported(cfg)
+    if not eval_mode and cfg.dropout > 0:
+        raise NotImplementedError(
+            "dropout > 0 in training is not ported yet (a later slice)")
+    x, zx0 = _lstm_embed(params, tokens, cfg)
+    hidden, state = lstm_mod.lstm_forward(
+        params.lstm, x, mask=mask, state=state,
+        compute_dtype=compute_dtype(cfg), cell=cfg.cell, eval_mode=eval_mode,
+        zx0=zx0)
+    return head_logits(params, hidden, cfg), state
+
+
+def token_nll(logits: torch.Tensor, targets: torch.Tensor,
+              mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sum CE over masked positions, count), fp32 log-softmax.
+
+    Up to ONEHOT_VOCAB_MAX the JAX package takes log_softmax and the target
+    entry; above it the lse form lse - logit[target]; both are kept."""
+    logits = logits.float()
+    idx = targets[..., None]
+    if logits.shape[-1] <= ONEHOT_VOCAB_MAX:
+        logp = torch.log_softmax(logits, dim=-1)
+        ce = -logp.gather(-1, idx)[..., 0]
+    else:
+        ce = torch.logsumexp(logits, dim=-1) - logits.gather(-1, idx)[..., 0]
+    m = mask.float()
+    return (ce * m).sum(), m.sum()
+
+
+def sequence_nll(logits: torch.Tensor, targets: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean NLL/token (the headline metric)."""
+    total, count = token_nll(logits, targets, mask)
+    return total / count.clamp_min(1.0)
+
+
+def lm_nll_stats(params: LSTMLM, tokens: torch.Tensor, lengths: torch.Tensor,
+                 cfg, eval_mode: bool = False):
+    """(sum CE, token count) on a [B, T] batch of songs."""
+    inputs, targets, mask = shift_targets(tokens, lengths)
+    logits, _ = lm_logits(params, inputs, cfg, mask=mask,
+                          eval_mode=eval_mode)
+    return token_nll(logits, targets, mask)
+
+
 def support_state(params: LSTMLM, support: torch.Tensor,
                   support_len: torch.Tensor, cfg, eval_mode: bool = False):
     """The priming per-layer (h, c) derived from the support set.
@@ -173,3 +247,29 @@ def support_state(params: LSTMLM, support: torch.Tensor,
                                      compute_dtype=dt, cell=cfg.cell,
                                      eval_mode=eval_mode, zx0=zx0)
     return state
+
+
+def episodic_nll_stats(params: LSTMLM, ep, cfg, eval_mode: bool = False):
+    """(sum CE over query tokens, query token count) for a meta-batch.
+
+    The LSTM branch of the JAX function without cache head or fused head:
+    the support state (support_mode state or mean_state) primes each
+    episode's Q query songs, which run as one [B*Q, L-1] batch.  In
+    mean_state mode the support pass's top-layer outputs are unused, so its
+    gradient arrives only through the final state (mean, then repeat)."""
+    check_supported(cfg)
+    check_fused_head(params, cfg)
+    b, q_, l_ = ep.query.shape
+    inputs, targets, mask = shift_targets(ep.query, ep.query_len)
+    state = None
+    if cfg.support_mode in ("state", "mean_state"):
+        state = support_state(params, ep.support, ep.support_len, cfg,
+                              eval_mode=eval_mode)
+        # each episode's state over its Q query songs
+        state = [(h.repeat_interleave(q_, dim=0),
+                  c.repeat_interleave(q_, dim=0)) for h, c in state]
+    logits, _ = lm_logits(params, inputs.reshape(b * q_, l_ - 1), cfg,
+                          mask=mask.reshape(b * q_, l_ - 1), state=state,
+                          eval_mode=eval_mode)
+    return token_nll(logits, targets.reshape(b * q_, l_ - 1),
+                     mask.reshape(b * q_, l_ - 1))

@@ -9,7 +9,9 @@ side transposes), and a masked carry: a PAD step leaves (h, c) unchanged.
 ``cell="scan"`` runs the plain PyTorch step loop; ``cell="pallas"`` routes
 to the CUDA recurrence kernels (``fewshot_torch/ops``), choosing between the
 fused multi-layer kernel and the per-layer kernel with the same predicate as
-the JAX package, so one config runs the same kernel family in both.
+the JAX package, so one config runs the same kernel family in both, in
+eval and in train mode.  Both routes are differentiable: under
+``cell="pallas"`` the backward kernels run in the backward pass.
 """
 
 from __future__ import annotations

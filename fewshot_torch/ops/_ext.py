@@ -30,10 +30,12 @@ _I = ctypes.c_int
 # C signature of every exported function: argument types, int result
 SIGNATURES = {
     "lstm_fwd": {
-        "lstm_fwd_layer": [_P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _P],
-        "lstm_fwd_stack": [_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _P],
+        "lstm_fwd_layer": [_P] * 9 + [_I] * 4 + [_P],
+        "lstm_fwd_stack": [_P] * 10 + [_I] * 5 + [_P],
+    },
+    "lstm_bwd": {
+        "lstm_bwd_layer": [_P] * 10 + [_I] * 4 + [_P],
+        "lstm_bwd_stack": [_P] * 11 + [_I] * 5 + [_P],
     },
 }
 

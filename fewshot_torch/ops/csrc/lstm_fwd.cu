@@ -9,7 +9,11 @@
 //   z = zx[t] (layer 0) or x_t . Wx (layers >= 1)  +  h_{t-1} . Wh  +  b
 // in fp32, applies the TF gates (i, j, f, o) with the +1 forget bias and the
 // masked carry (a PAD step holds h and c), and writes the fp32 state and the
-// ys/cs streams.  The product operands are rounded to the weight dtype first
+// ys/cs streams.  In train mode (a non-null `gates`) it also writes the gate
+// activations (sigmoid i, tanh j, sigmoid(f + 1), sigmoid o) of every step,
+// PAD steps included, in the stream dtype: the backward kernels
+// (lstm_bwd.cu) read them instead of recomputing z.  Serving passes null and
+// writes nothing more.  The product operands are rounded to the weight dtype first
 // (bf16 or fp32) and the products are summed in fp32, as the TPU kernels do
 // with preferred_element_type=float32.
 //
@@ -158,7 +162,7 @@ __device__ __forceinline__ void contract(const float* hs, const W* ws,
 // One time step of one layer.  zx [B, 4H] (layer 0) or x [B, H] with wx
 // [H, 4H] (in-kernel projection, layers >= 1); exactly one of the two is
 // given.  wh [H, 4H]; bias [4H]; mask [B]; h_prev/h_next/c [B, H] fp32;
-// ys/cs [B, H] in the stream dtype.
+// ys/cs [B, H] and (optional) gates [B, 4H] in the stream dtype.
 template <typename W, typename S, int ROWS, int UNITS, int KSPLIT>
 __global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads)
     lstm_step_kernel(const S* __restrict__ zx, const float* __restrict__ x,
@@ -167,8 +171,8 @@ __global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads)
                      const float* __restrict__ mask,
                      const float* __restrict__ h_prev,
                      float* __restrict__ h_next, float* __restrict__ c,
-                     S* __restrict__ ys, S* __restrict__ cs, int rows,
-                     int hidden) {
+                     S* __restrict__ ys, S* __restrict__ cs,
+                     S* __restrict__ gates, int rows, int hidden) {
   constexpr int kThreads = Tile<ROWS, UNITS, KSPLIT>::kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
   float* hs = reinterpret_cast<float*>(smem);
@@ -234,6 +238,13 @@ __global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads)
     const float tj = tanhf(z[1]);
     const float sf = sigmoid(z[2] + 1.0f);  // in-cell forget bias
     const float so = sigmoid(z[3]);
+    if (gates != nullptr) {
+      S* g = gates + (size_t)row * four_h + u;
+      g[0] = from_float<S>(si);
+      g[hidden] = from_float<S>(tj);
+      g[2 * (size_t)hidden] = from_float<S>(sf);
+      g[3 * (size_t)hidden] = from_float<S>(so);
+    }
     const size_t idx = (size_t)row * hidden + u;
     const float c_old = c[idx];
     const float h_old = h_prev[idx];
@@ -266,13 +277,13 @@ struct StepLauncher {
   cudaError_t launch(const S* zx, const float* x, const W* wx, const W* wh,
                      const float* bias, const float* mask,
                      const float* h_prev, float* h_next, float* c, S* ys,
-                     S* cs, int rows, int hidden,
+                     S* cs, S* gates, int rows, int hidden,
                      cudaStream_t stream) const {
     const dim3 grid(hidden / UNITS, (rows + ROWS - 1) / ROWS);
     lstm_step_kernel<W, S, ROWS, UNITS, KSPLIT>
         <<<grid, T::kThreads, smem, stream>>>(zx, x, wx, wh, bias, mask,
                                               h_prev, h_next, c, ys, cs,
-                                              rows, hidden);
+                                              gates, rows, hidden);
     return cudaGetLastError();
   }
 };
@@ -281,7 +292,7 @@ template <typename W, typename S, typename L>
 cudaError_t run_layer_with(L& launcher, const void* zx_v, const void* wh_v,
                            const float* bias, const float* mask,
                            float* h_buf, float* c, void* ys_v, void* cs_v,
-                           int steps, int rows, int hidden,
+                           void* gates_v, int steps, int rows, int hidden,
                            cudaStream_t stream) {
   cudaError_t err = launcher.prepare(hidden);
   if (err != cudaSuccess) return err;
@@ -289,12 +300,15 @@ cudaError_t run_layer_with(L& launcher, const void* zx_v, const void* wh_v,
   const W* wh = static_cast<const W*>(wh_v);
   S* ys = static_cast<S*>(ys_v);
   S* cs = static_cast<S*>(cs_v);
+  S* gates = static_cast<S*>(gates_v);
   const size_t bh = (size_t)rows * hidden;
   for (int t = 0; t < steps; ++t) {
     err = launcher.launch(zx + (size_t)t * 4 * bh, nullptr, nullptr, wh,
                           bias, mask + (size_t)t * rows,
                           h_buf + (t & 1) * bh, h_buf + ((t + 1) & 1) * bh,
-                          c, ys + t * bh, cs + t * bh, rows, hidden, stream);
+                          c, ys + t * bh, cs + t * bh,
+                          gates ? gates + (size_t)t * 4 * bh : nullptr, rows,
+                          hidden, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -304,8 +318,9 @@ template <typename W, typename S, typename L>
 cudaError_t run_stack_with(L& launcher, const void* zx_v, const void* wx_v,
                            const void* wh_v, const float* bias,
                            const float* mask, float* h_buf, float* c,
-                           void* ys_v, void* cs_v, int steps, int rows,
-                           int hidden, int layers, cudaStream_t stream) {
+                           void* ys_v, void* cs_v, void* gates_v, int steps,
+                           int rows, int hidden, int layers,
+                           cudaStream_t stream) {
   cudaError_t err = launcher.prepare(hidden);
   if (err != cudaSuccess) return err;
   const S* zx = static_cast<const S*>(zx_v);
@@ -313,6 +328,7 @@ cudaError_t run_stack_with(L& launcher, const void* zx_v, const void* wx_v,
   const W* wh = static_cast<const W*>(wh_v);
   S* ys = static_cast<S*>(ys_v);
   S* cs = static_cast<S*>(cs_v);
+  S* gates = static_cast<S*>(gates_v);
   const size_t bh = (size_t)rows * hidden;
   const size_t whh = (size_t)hidden * 4 * hidden;
   for (int t = 0; t < steps; ++t) {
@@ -327,7 +343,9 @@ cudaError_t run_stack_with(L& launcher, const void* zx_v, const void* wx_v,
           bias + (size_t)l * 4 * hidden, mask + (size_t)t * rows,
           h_cur + l * bh, h_new + l * bh, c + l * bh,
           ys + ((size_t)l * steps + t) * bh,
-          cs + ((size_t)l * steps + t) * bh, rows, hidden, stream);
+          cs + ((size_t)l * steps + t) * bh,
+          gates ? gates + ((size_t)l * steps + t) * 4 * bh : nullptr, rows,
+          hidden, stream);
       if (err != cudaSuccess) return err;
     }
   }
@@ -357,46 +375,49 @@ bool shape_ok(int rows, int hidden) {
 // dtype: 0 = fp32 weights and streams, 1 = bf16 weights and streams.
 // h_buf [2, B, H] holds h0 in slot 0 on entry; after `steps` steps the final
 // h is in slot steps % 2.  c [B, H] holds c0 on entry and cT on return.
+// gates [T, B, 4H] or null (serving).
 // Returns a cudaError_t code (0 = launched).
 extern "C" int lstm_fwd_layer(const void* zx, const void* wh,
                               const float* bias, const float* mask,
                               float* h_buf, float* c, void* ys, void* cs,
-                              int steps, int rows, int hidden, int dtype,
-                              void* stream) {
+                              void* gates, int steps, int rows, int hidden,
+                              int dtype, void* stream) {
   if (!shape_ok(rows, hidden)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (use_wide<float>(rows, hidden)) {
       WideF l;
       return run_layer_with<float, float>(l, zx, wh, bias, mask, h_buf, c,
-                                          ys, cs, steps, rows, hidden, st);
+                                          ys, cs, gates, steps, rows, hidden,
+                                          st);
     }
     NarrowF l;
     return run_layer_with<float, float>(l, zx, wh, bias, mask, h_buf, c, ys,
-                                        cs, steps, rows, hidden, st);
+                                        cs, gates, steps, rows, hidden, st);
   }
   if (dtype == 1) {
     using B = __nv_bfloat16;
     if (use_wide<B>(rows, hidden)) {
       WideB l;
       return run_layer_with<B, B>(l, zx, wh, bias, mask, h_buf, c, ys, cs,
-                                  steps, rows, hidden, st);
+                                  gates, steps, rows, hidden, st);
     }
     NarrowB l;
     return run_layer_with<B, B>(l, zx, wh, bias, mask, h_buf, c, ys, cs,
-                                steps, rows, hidden, st);
+                                gates, steps, rows, hidden, st);
   }
   return cudaErrorInvalidValue;
 }
 
 // Whole stack of L >= 2 layers: zx [T, B, 4H] (layer 0), wx_rest
 // [L-1, H, 4H], wh [L, H, 4H], bias [L, 4H], mask [T, B]; h_buf
-// [2, L, B, H] with h0 in slot 0; c [L, B, H]; ys/cs [L, T, B, H].
+// [2, L, B, H] with h0 in slot 0; c [L, B, H]; ys/cs [L, T, B, H]; gates
+// [L, T, B, 4H] or null.
 extern "C" int lstm_fwd_stack(const void* zx, const void* wx_rest,
                               const void* wh, const float* bias,
                               const float* mask, float* h_buf, float* c,
-                              void* ys, void* cs, int steps, int rows,
-                              int hidden, int layers, int dtype,
+                              void* ys, void* cs, void* gates, int steps,
+                              int rows, int hidden, int layers, int dtype,
                               void* stream) {
   if (!shape_ok(rows, hidden) || layers < 2) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -404,12 +425,12 @@ extern "C" int lstm_fwd_stack(const void* zx, const void* wx_rest,
     if (use_wide<float>(rows, hidden)) {
       WideF l;
       return run_stack_with<float, float>(l, zx, wx_rest, wh, bias, mask,
-                                          h_buf, c, ys, cs, steps, rows,
-                                          hidden, layers, st);
+                                          h_buf, c, ys, cs, gates, steps,
+                                          rows, hidden, layers, st);
     }
     NarrowF l;
     return run_stack_with<float, float>(l, zx, wx_rest, wh, bias, mask,
-                                        h_buf, c, ys, cs, steps, rows,
+                                        h_buf, c, ys, cs, gates, steps, rows,
                                         hidden, layers, st);
   }
   if (dtype == 1) {
@@ -417,11 +438,13 @@ extern "C" int lstm_fwd_stack(const void* zx, const void* wx_rest,
     if (use_wide<B>(rows, hidden)) {
       WideB l;
       return run_stack_with<B, B>(l, zx, wx_rest, wh, bias, mask, h_buf, c,
-                                  ys, cs, steps, rows, hidden, layers, st);
+                                  ys, cs, gates, steps, rows, hidden, layers,
+                                  st);
     }
     NarrowB l;
     return run_stack_with<B, B>(l, zx, wx_rest, wh, bias, mask, h_buf, c,
-                                ys, cs, steps, rows, hidden, layers, st);
+                                ys, cs, gates, steps, rows, hidden, layers,
+                                st);
   }
   return cudaErrorInvalidValue;
 }

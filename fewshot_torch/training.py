@@ -1,0 +1,216 @@
+"""Training core: optimizer, TrainState, the train step.
+
+Port of ``fewshot/training.py`` on one device (``mesh=None``).  A step samples
+its episodes on the device (``data.episodes.sample_episode``), runs the
+forward and backward (the LSTM kernels' autograd Functions under
+``cell="pallas"``), divides the gradients (CE sums) by the token count, and
+applies the optax chain of the JAX package by hand:
+
+* ``clip_by_global_norm``: scale only when the norm reaches the maximum,
+  and then by max / norm (``torch.nn.utils.clip_grad_norm_`` adds 1e-6
+  and always scales, so it is not used);
+* Adam (b1 0.9, b2 0.999, eps 1e-8, bias-corrected), AdamW when
+  ``weight_decay > 0``, or SGD;
+* the learning rate, or ``linear_schedule(0, lr, warmup_steps)`` read at
+  the count before the update (the first warm-up step has lr 0).
+
+Parameters and optimizer moments are updated in place (PyTorch tensors are
+mutable; the JAX step returns new arrays).  Nothing in a step reads a value
+back to the host, so a later change can capture it in a CUDA graph.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from fewshot_torch.data.episodes import (CorpusOnDevice, sample_episode,
+                                         sample_lm_batch)
+from fewshot_torch.device import resolve_device
+from fewshot_torch.models import lm as lm_mod
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+
+
+class OptState(NamedTuple):
+    """The optimizer's state: the update count (an int64 scalar on the
+    parameters' device, read by the bias correction and the schedule) and,
+    for Adam, the moments by parameter name (``lstm.0.wx`` ...)."""
+    count: torch.Tensor
+    mu: dict
+    nu: dict
+
+
+class TrainState(NamedTuple):
+    params: lm_mod.LSTMLM
+    opt_state: OptState
+    step: int
+    gen: torch.Generator    # on the parameters' device; feeds the sampler
+
+
+class Optimizer:
+    """The JAX package's ``make_optimizer`` chain as in-place updates."""
+
+    def __init__(self, cfg):
+        self.kind = cfg.optimizer
+        self.lr = cfg.lr
+        self.warmup = cfg.warmup_steps
+        self.weight_decay = cfg.weight_decay
+        self.clip = cfg.grad_clip
+
+    def init(self, params) -> OptState:
+        named = dict(params.named_parameters())
+        dev = next(iter(named.values())).device
+        zeros = ({k: torch.zeros_like(p) for k, p in named.items()}
+                 if self.kind == "adam" else {})
+        return OptState(torch.zeros((), dtype=torch.int64, device=dev),
+                        zeros, {k: v.clone() for k, v in zeros.items()})
+
+    def learning_rate(self, count: torch.Tensor) -> torch.Tensor:
+        """lr at the update count (linear_schedule(0, lr, warmup) when
+        warming up), fp32."""
+        if self.warmup <= 0:
+            return torch.full((), self.lr, device=count.device)
+        done = count.clamp(0, self.warmup).float()
+        frac = 1.0 - done / self.warmup
+        return (0.0 - self.lr) * frac + self.lr
+
+    @torch.no_grad()
+    def update_(self, grads: dict, state: OptState, params,
+                g_norm: torch.Tensor) -> None:
+        """Apply one update to params and state in place.  grads: the
+        normalized gradients by parameter name; g_norm their global norm."""
+        if self.clip > 0:
+            keep = g_norm < self.clip
+            grads = {k: torch.where(keep, g, (g / g_norm) * self.clip)
+                     for k, g in grads.items()}
+        step = -self.learning_rate(state.count)
+        count = state.count + 1
+        if self.kind == "adam":     # bias corrections, fp32 as in optax
+            fix1 = 1.0 - torch.pow(B1, count.float())
+            fix2 = 1.0 - torch.pow(B2, count.float())
+        for name, p in params.named_parameters():
+            g = grads[name]
+            if self.kind == "adam":
+                mu, nu = state.mu[name], state.nu[name]
+                mu.copy_((1.0 - B1) * g + B1 * mu)
+                nu.copy_((1.0 - B2) * (g * g) + B2 * nu)
+                u = (mu / fix1) / (torch.sqrt(nu / fix2) + EPS)
+                if self.weight_decay > 0:
+                    u = u + self.weight_decay * p
+            else:
+                u = g
+            p.add_(step * u)
+        state.count.copy_(count)
+
+
+def make_optimizer(cfg) -> Optimizer:
+    return Optimizer(cfg)
+
+
+def _seeds(seed: int) -> tuple[int, int]:
+    """Two independent seeds (weights, sampler) from one."""
+    a, b = np.random.SeedSequence(seed).spawn(2)
+    return int(a.generate_state(1)[0]), int(b.generate_state(1)[0])
+
+
+def init_train_state(cfg, vocab_size: int, seed: int | None = None,
+                     device: torch.device | str | None = None) -> TrainState:
+    """Random parameters, a fresh optimizer state and a sampler generator
+    on `device` (cuda unless the caller names the CPU)."""
+    dev = resolve_device(device)
+    s_init, s_run = _seeds(cfg.seed if seed is None else seed)
+    params = lm_mod.init_lm(cfg, vocab_size,
+                            torch.Generator().manual_seed(s_init), dev)
+    gen = torch.Generator(device=dev).manual_seed(s_run)
+    return TrainState(params, make_optimizer(cfg).init(params), 0, gen)
+
+
+def _loss_stats(params, cfg, data: CorpusOnDevice, split_artists, gen,
+                batch_size: int, train: bool = False):
+    """Sample a batch/episodes on the device and return (ce_sum, count).
+
+    train=False flags eval_mode downstream (the forward-only fused stack)."""
+    if cfg.task == "episodic":
+        ep = sample_episode(gen, data, split_artists, batch_size,
+                            k=cfg.support_size, q=cfg.query_size)
+        return lm_mod.episodic_nll_stats(params, ep, cfg,
+                                         eval_mode=not train)
+    tokens, lengths = sample_lm_batch(gen, data, split_artists, batch_size)
+    return lm_mod.lm_nll_stats(params, tokens, lengths, cfg,
+                               eval_mode=not train)
+
+
+def global_norm(grads: dict) -> torch.Tensor:
+    return torch.sqrt(sum((g * g).sum() for g in grads.values()))
+
+
+def _make_apply(cfg, opt: Optimizer):
+    """The grad-normalize + optimizer update half of a train step."""
+    def apply(state: TrainState, grads: dict, total, count):
+        # grads are CE sums; normalize by the token count
+        inv = 1.0 / count.clamp_min(1.0)
+        grads = {k: g * inv for k, g in grads.items()}
+        g_norm = global_norm(grads)
+        opt.update_(grads, state.opt_state, state.params, g_norm)
+        metrics = {"loss": total.detach() * inv, "tokens": count,
+                   "grad_norm": g_norm}
+        return state._replace(step=state.step + 1), metrics
+    return apply
+
+
+def _grads(params, loss_fn):
+    """(grads by parameter name, total, count) of loss_fn() = (total,
+    count), total differentiated with respect to params."""
+    for p in params.parameters():
+        p.grad = None
+    total, count = loss_fn()
+    total.backward()
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for k, p in params.named_parameters()}
+    for p in params.parameters():
+        p.grad = None
+    return grads, total, count
+
+
+def make_train_step(cfg, data: CorpusOnDevice, split_artists):
+    """The train step: state -> (state, metrics).  `split_artists` is the
+    train split's artist ids (or the song pool for task="lm") on the
+    corpus device."""
+    apply = _make_apply(cfg, make_optimizer(cfg))
+
+    def train_step(state: TrainState):
+        grads, total, count = _grads(state.params, lambda: _loss_stats(
+            state.params, cfg, data, split_artists, state.gen,
+            cfg.batch_size, train=True))
+        return apply(state, grads, total, count)
+    return train_step
+
+
+def make_fed_train_step(cfg):
+    """The train step on an episode given as an argument:
+    (state, episode) -> (state, metrics)."""
+    apply = _make_apply(cfg, make_optimizer(cfg))
+
+    def train_step(state: TrainState, ep):
+        grads, total, count = _grads(
+            state.params,
+            lambda: lm_mod.episodic_nll_stats(state.params, ep, cfg))
+        return apply(state, grads, total, count)
+    return train_step
+
+
+def make_multi_step(train_step, k: int):
+    """k train steps per call, returning the last step's metrics: the same
+    trajectory as calling train_step k times (a Python loop; capturing the
+    chunk in a CUDA graph is later work)."""
+    if k <= 1:
+        return train_step
+
+    def multi(state: TrainState):
+        for _ in range(k):
+            state, metrics = train_step(state)
+        return state, metrics
+    return multi

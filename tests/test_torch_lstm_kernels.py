@@ -197,15 +197,6 @@ def test_stack_adapter_matches_pallas(case, name):
     _close(torch.stack([c for _, c in st]), ref[f"fused_{name}_c"], tol_h)
 
 
-def test_wrappers_refuse_grads():
-    """No backward kernel yet: a differentiable call raises, on any device."""
-    zx = torch.zeros((2, 3, 4 * H), requires_grad=True)
-    args = (torch.zeros(H, 4 * H), torch.zeros(4 * H),
-            torch.ones(2, 3, 1), torch.zeros(3, H), torch.zeros(3, H))
-    with pytest.raises(NotImplementedError):
-        lstm_layer.lstm_layer_fwd(zx, *args)
-
-
 @pytest.mark.parametrize("dt,hidden", [(torch.float32, 1920),
                                        (torch.bfloat16, 2432)])
 def test_oversized_hidden_raises(dt, hidden):
