@@ -8,12 +8,13 @@ Phases, each of which exits non-zero on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from fewshot_torch/ops/csrc (one nvcc per
      source, all started together; sm_90a);
-  3. each kernel against its plain PyTorch twin at full width (E=256,
-     H=512, 2 layers; bf16 and fp32; ragged masks): the two forward
-     kernels (and their train-mode gate activations) and the two backward
-     kernels, with each kernel's time (CUDA events), its bound, the twin's
-     time and torch.nn.LSTM (cuDNN; forward, or forward and backward for
-     the backward kernels) timed at the same shape as a yardstick only;
+  3. each recurrence kernel against its plain PyTorch twin at full width
+     (E=256, H=512, 2 layers; bf16 and fp32; ragged masks): the two
+     forward kernels (and their train-mode gate activations) and the two
+     backward kernels, with each kernel's time (CUDA events), its bound,
+     the twin's time and torch.nn.LSTM (cuDNN; forward, or forward and
+     backward for the backward kernels) timed at the same shape as a
+     yardstick only;
   4. serving phase A, the bench config (support_mode=mean_state, batch 32,
      the per-layer kernel): an HTTP server answers concurrent /generate
      requests; the per-layer kernel's launch count must rise;
@@ -27,11 +28,28 @@ Phases, each of which exits non-zero on failure:
      backward kernels' launch counts must rise;
   7. training phase B, the shipped config (support_mode=state, B=16): the
      fused-stack forward and backward kernels' counts must rise;
-  8. the card line, a {"kernels": [...]} line, then the {"ok": true, ...}
+  8. the V=5000 synthetic lyrics corpus, then the fused head+CE forward
+     and backward kernels against their twins at training C's head shape
+     (R = B*Q*(L-1) rows, D=256, V=5000, neither a multiple of the 64-wide
+     tiles; targets at 0 and V-1), with torch.logsumexp of the dense
+     logits (and its autograd backward) as the yardstick; after 4-7, so
+     that those phases run in a process like the one before the V=5000
+     path existed;
+  9. training phase C, the V=5000 neural-cache stack
+     (scripts/scale_quality.py's plain_cache_full_floor leg: mean_state,
+     B=32, global backoff, calibration, dynamic cache, responsibility floor
+     0.25) on that corpus, as A: the per-layer kernels and the fused
+     head+CE kernels' counts must rise; one step's grads, the cache
+     parameters' included, against the plain route (the dense head); the
+     validation NLL (512 episodes) before and after training, which must
+     fall, with the head+CE forward counted and the backward idle during
+     evaluation; the episodic-unigram floor on the same split;
+ 10. the card line, a {"kernels": [...]} line, then the {"ok": true, ...}
      line.
 
-Weights are random from a seed; the corpus is the synthetic bench corpus
-built offline in a temporary directory.  fp32 matmuls run in full fp32
+Weights are random from a seed; the corpora (the bench corpus and the
+V=5000 scale corpus of scripts/scale_test.py) are synthetic, built offline
+in a temporary directory.  fp32 matmuls run in full fp32
 (TF32 off for both matmul and cuDNN).
 """
 
@@ -73,6 +91,17 @@ STATE_TOL = 2e-2        # support state, kernel route vs plain route (bf16)
 # grad rounded after), ~2^-9 per rounding over 95-480 steps, and the
 # embedding's scatter-add sums in a run-dependent order
 GRAD_TOL = 5e-2
+# head+CE kernels against their twins: the same bf16- (or fp32-) rounded
+# operands and fp32 sums on both sides, summed in another order (lse and
+# tl absolute over 5000 columns); the backward rounds dlogits to bf16
+# before both products, where an fp32 p that differs in its last bit can
+# flip one entry by a bf16 step (relative to each output's largest; the bf16
+# dh2 output is itself one rounding, 2^-8 of its entry); a skipped vocab
+# tile removes ~1/79 of the softmax mass from dh2, above the bf16 limit
+HEAD_FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+HEAD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+HEAD_D = E              # the tied head's inner width
+EVAL_EPISODES = 512
 KERNEL_REPS, PLAIN_REPS = 20, 3
 ROUNDS = 3              # rounds of 7 requests per serving phase
 TRAIN_WARMUP, TRAIN_CALLS = 2, 4    # calls of steps_per_call steps
@@ -242,7 +271,7 @@ def check_kernel(name, wrapper, plain, args, tols, relative, ops, dtype,
     log(f"  {name} {rec['dtype']}: errors {checked} (tol {tols}, "
         f"{'relative' if relative else 'absolute'}) parity={ok} kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}), cuDNN {rec['library_ms']}")
+        f"({bound_by}), library {rec['library_ms']}")
     if not ok:
         raise RuntimeError(f"{name} {dtype} disagrees with its twin: {errs}")
     return rec
@@ -340,6 +369,59 @@ def kernel_phase(dev) -> dict:
     return records
 
 
+def head_library_ms(h2, w, b, t, cot=None) -> float:
+    """torch.logsumexp of the dense logits and the target's logit (cuBLAS
+    at the operands' dtype), with cot=(dlse, dtl) also its autograd
+    backward: the yardstick only, never called by the port."""
+    leaves = [x.detach().requires_grad_(cot is not None) for x in (h2, w, b)]
+
+    def run():
+        hh, ww, bb = leaves
+        logits = (hh @ ww.to(hh.dtype)).float() + bb
+        lse = torch.logsumexp(logits, dim=-1)
+        tl = logits.gather(1, t[:, None].long())[:, 0]
+        if cot is not None:
+            torch.autograd.backward((lse, tl), cot)
+
+    if cot is not None:
+        return cuda_ms(run, KERNEL_REPS)
+    with torch.no_grad():
+        return cuda_ms(run, KERNEL_REPS)
+
+
+def head_kernel_phase(dev, rows: int, vocab: int) -> dict:
+    """Kernels 5 and 6 against their twins at training C's head shape."""
+    from fewshot_torch.ops import head_ce
+    gen = torch.Generator().manual_seed(1)
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        h2 = torch.randn((rows, HEAD_D), generator=gen).to(dev, dtype)
+        # the tied head: w [D, V] is the embedding table [V, D] transposed
+        table = torch.randn((vocab, HEAD_D), generator=gen) * HEAD_D ** -0.5
+        w = table.to(dev).T
+        b = (torch.randn(vocab, generator=gen) * 0.5).to(dev)
+        t = torch.randint(0, vocab, (rows,), generator=gen)
+        t[0], t[-1] = 0, vocab - 1
+        t = t.to(dev)
+        products = 2.0 * rows * HEAD_D * vocab
+        records[("head_fwd", dtype)] = check_kernel(
+            "head_ce_fwd", head_ce.head_ce_fwd, head_ce.head_lse_tgt_plain,
+            (h2, w, b, t), [HEAD_FWD_TOL[dtype]] * 2, False, products, dtype,
+            lambda: head_library_ms(h2, w, b, t))
+        with torch.no_grad():
+            lse, _ = head_ce.head_lse_tgt_plain(h2, w, b, t)
+        dlse = torch.rand((rows,), generator=gen).to(dev)
+        dtl = -torch.rand((rows,), generator=gen).to(dev)
+        # the function's least work: the logits once, dh2 and dw (the
+        # kernels recompute the logits in each of their two passes)
+        records[("head_bwd", dtype)] = check_kernel(
+            "head_ce_bwd", head_ce.head_ce_bwd,
+            head_ce.head_lse_tgt_bwd_plain, (h2, w, b, t, lse, dlse, dtl),
+            [HEAD_BWD_TOL[dtype]] * 3, True, 3 * products, dtype,
+            lambda: head_library_ms(h2, w, b, t, (dlse, dtl)))
+    return records
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: serving over HTTP
 # ---------------------------------------------------------------------------
@@ -350,6 +432,18 @@ def bench_corpus(tmp: Path):
     csv = tmp / "lyrics.csv"
     generate_lyrics_csv(csv, num_artists=24, songs_per_artist=16, seed=0)
     return build_lyrics_corpus(csv, tmp / "bench_lyrics", vocab_size=5000,
+                               max_len=0, seed=0)
+
+
+def scale_corpus(tmp: Path):
+    """The V=5000 synthetic lyrics corpus of scripts/scale_test.py:33-67
+    (2000 artists x 50 songs, 6000 extra words), uncut."""
+    from fewshot_torch.data.corpus import build_lyrics_corpus
+    from fewshot_torch.data.synthetic import generate_lyrics_csv
+    csv = tmp / "scale.csv"
+    generate_lyrics_csv(csv, num_artists=2000, songs_per_artist=50,
+                        extra_vocab=6000, seed=0)
+    return build_lyrics_corpus(csv, tmp / "scale_lyrics", vocab_size=5000,
                                max_len=0, seed=0)
 
 
@@ -369,9 +463,7 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
 
     params = lm.init_lm(cfg, len(corpus.vocab),
                         torch.Generator().manual_seed(cfg.seed), dev)
-    kernel_counters = counters()
-    for fn in kernel_counters.values():
-        fn.launches = 0
+    kernel_counters = reset_counts()
     gen = Generator(cfg, corpus, params, batch_size=cfg.batch_size,
                     device=dev)
     srv = serve(gen, host="127.0.0.1", port=0)
@@ -481,11 +573,20 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
 
 def counters() -> dict:
     """Every kernel wrapper by name; each counts its launches."""
-    from fewshot_torch.ops import lstm_layer, lstm_stack
+    from fewshot_torch.ops import head_ce, lstm_layer, lstm_stack
     return {"lstm_layer_fwd": lstm_layer.lstm_layer_fwd,
             "lstm_layer_bwd": lstm_layer.lstm_layer_bwd,
             "lstm_stack_fwd": lstm_stack.lstm_stack_fwd,
-            "lstm_stack_bwd": lstm_stack.lstm_stack_bwd}
+            "lstm_stack_bwd": lstm_stack.lstm_stack_bwd,
+            "head_ce_fwd": head_ce.head_ce_fwd,
+            "head_ce_bwd": head_ce.head_ce_bwd}
+
+
+def reset_counts() -> dict:
+    kernel_counters = counters()
+    for fn in kernel_counters.values():
+        fn.launches = 0
+    return kernel_counters
 
 
 def grad_check(cfg, params, ep) -> dict:
@@ -510,9 +611,33 @@ def grad_check(cfg, params, ep) -> dict:
     return {k: max_rel(fast[k], slow[k])[1] for k in slow}
 
 
-def training_phase(label, cfg, corpus, dev, must_rise) -> dict:
+def eval_phase(label, cfg, params, data, corpus, dev) -> dict:
+    """The validation NLL (EVAL_EPISODES episodes of the val split, the
+    same episodes every call) through training.evaluate, with the launches
+    it made and its host time."""
+    from fewshot_torch import training
+    val = torch.as_tensor(np.asarray(corpus.splits["val"]),
+                          dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    kernel_counters = reset_counts()
+    t0 = time.perf_counter()
+    nll = training.evaluate(cfg, params, data, val,
+                            torch.Generator(device=dev).manual_seed(7),
+                            num_episodes=EVAL_EPISODES)
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernel_counters.items()}
+    if not np.isfinite(nll):
+        raise RuntimeError(f"{label}: val NLL not finite: {nll}")
+    return {"nll": nll, "wall_s": wall, "launches": launches,
+            "batches": EVAL_EPISODES // cfg.batch_size}
+
+
+def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False
+                   ) -> dict:
     """The train step at cfg, dispatched steps_per_call steps per call as
-    bench.py does: 2 warm-up calls, then 4 timed calls."""
+    bench.py does: 2 warm-up calls, then 4 timed calls.  evaluate: also the
+    val NLL before and after training (it must fall; the head+CE forward
+    must launch and its backward must not) and the unigram floor."""
     from fewshot_torch import training
     from fewshot_torch.data import episodes as eps
 
@@ -520,6 +645,8 @@ def training_phase(label, cfg, corpus, dev, must_rise) -> dict:
     split = torch.as_tensor(np.asarray(corpus.splits["train"]),
                             dtype=torch.int64, device=dev)
     state = training.init_train_state(cfg, len(corpus.vocab), device=dev)
+    if evaluate:
+        val_init = eval_phase(label, cfg, state.params, data, corpus, dev)
     one_step = training.make_train_step(cfg, data, split)
     step = training.make_multi_step(one_step, cfg.steps_per_call)
     # the first warm-up call runs as its single steps (the same trajectory,
@@ -533,9 +660,7 @@ def training_phase(label, cfg, corpus, dev, must_rise) -> dict:
         state, m = step(state)
         losses.append(float(m["loss"]))
     torch.cuda.synchronize()
-    kernel_counters = counters()
-    for fn in kernel_counters.values():
-        fn.launches = 0
+    kernel_counters = reset_counts()
     t0 = time.perf_counter()
     for _ in range(TRAIN_CALLS):
         state, m = step(state)
@@ -569,6 +694,7 @@ def training_phase(label, cfg, corpus, dev, must_rise) -> dict:
         raise RuntimeError(f"{label}: grads off the plain route: {grad_err}")
     rec = {"phase": label, "support_mode": cfg.support_mode,
            "batch": cfg.batch_size, "steps_per_call": cfg.steps_per_call,
+           "vocab": len(corpus.vocab), "max_len": corpus.max_len,
            "timed_steps": steps, "wall_s": wall,
            "episodes_per_s": steps * cfg.batch_size / wall,
            "step_ms": step_ms, "step_device_busy_ms": busy_ms,
@@ -580,6 +706,28 @@ def training_phase(label, cfg, corpus, dev, must_rise) -> dict:
            "launches": launches,
            "launches_per_step": {n: v / steps for n, v in launches.items()},
            "grad_rel_err_vs_plain": grad_err, "grad_tol": GRAD_TOL}
+    if evaluate:
+        from fewshot_torch.models import unigram
+        val_end = eval_phase(label, cfg, state.params, data, corpus, dev)
+        fwd = val_end["launches"]["head_ce_fwd"]
+        if not val_end["nll"] < val_init["nll"] or fwd == 0 \
+                or val_end["launches"]["head_ce_bwd"] != 0:
+            raise RuntimeError(f"{label}: evaluation failed its gates: "
+                               f"{val_init} then {val_end}")
+        val = torch.as_tensor(np.asarray(corpus.splits["val"]),
+                              dtype=torch.int64, device=dev)
+        floor = unigram.evaluate_unigram(
+            cfg, corpus, data, val, torch.Generator(device=dev).manual_seed(7),
+            num_episodes=EVAL_EPISODES)
+        rec.update({"val_nll_init": val_init["nll"],
+                    "val_nll_trained": val_end["nll"],
+                    "val_unigram_floor": floor,
+                    "eval_episodes": EVAL_EPISODES,
+                    "eval_wall_s": val_end["wall_s"],
+                    "eval_launches": val_end["launches"],
+                    "launches_per_eval_batch": {
+                        n: v / val_end["batches"]
+                        for n, v in val_end["launches"].items()}})
     log(f"{label}: {json.dumps(rec)}")
     return rec
 
@@ -640,6 +788,29 @@ def main() -> int:
         "training_B", dataclasses.replace(shipped, steps_per_call=10),
         corpus, dev, ("lstm_stack_fwd", "lstm_stack_bwd"))
 
+    # the V=5000 path, after the bench-corpus phases: its 100,000-song
+    # corpus build and the head+CE phase do not precede their host timings
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scale = scale_corpus(Path(tmp))
+        scale_s = time.perf_counter() - t0
+    log(f"scale corpus: {scale.songs.shape[0]} songs, max_len "
+        f"{scale.max_len}, vocab {len(scale.vocab)}, built in {scale_s:.1f} s")
+    # training C's head: B*Q query songs of max_len - 1 positions
+    head_rows = 32 * 5 * (scale.max_len - 1)
+    log(f"head+CE kernels vs plain twins ({head_rows} x {HEAD_D} x "
+        f"{len(scale.vocab)}):")
+    records.update(head_kernel_phase(dev, head_rows, len(scale.vocab)))
+    # scripts/scale_quality.py:58-70, 205-206, 274 (plain_cache_full_floor)
+    cache = dataclasses.replace(
+        bench, vocab_size=len(scale.vocab), max_len=scale.max_len,
+        steps_per_call=10, support_cache=True, cache_backoff="global",
+        cache_calib=True, cache_dynamic=True, cache_resp_floor=0.25)
+    train_c = training_phase(
+        "training_C", cache, scale, dev,
+        ("lstm_layer_fwd", "lstm_layer_bwd", "head_ce_fwd", "head_ce_bwd"),
+        evaluate=True)
+
     meta = {  # key, csrc source, TPU kernel, the slice's path, serving path
         "lstm_layer_fwd": ("layer", "lstm_fwd.cu",
                            "fewshot/ops/lstm_pallas.py:122", train_a,
@@ -650,6 +821,10 @@ def main() -> int:
                            "fewshot/ops/lstm_fused.py:88", train_b, serve_b),
         "lstm_stack_bwd": ("stack_bwd", "lstm_bwd.cu",
                            "fewshot/ops/lstm_fused.py:200", train_b, None),
+        "head_ce_fwd": ("head_fwd", "head_ce.cu",
+                        "fewshot/ops/head_ce.py:142", train_c, None),
+        "head_ce_bwd": ("head_bwd", "head_ce.cu",
+                        "fewshot/ops/head_ce.py:153", train_c, None),
     }
     kernels = []
     for name, (key, src, replaces, phase, serve) in meta.items():
@@ -672,6 +847,9 @@ def main() -> int:
             rec["launches_serving"] = serve["launches"][name]
             rec["gates_max_abs_err"] = [r["gates_max_abs_err"],
                                         f["gates_max_abs_err"]]
+        if "launches_per_eval_batch" in phase:
+            rec["launches_per_eval_batch"] = \
+                phase["launches_per_eval_batch"][name]
         kernels.append(rec)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

@@ -2,11 +2,14 @@
 and the port, and the port's checkpoint file.
 
 The JAX package's LSTM parameter tree (``fewshot/models/lm.py`` init_lm) is
-``embed``, ``lstm[l].{wx, wh, b}``, ``out_proj`` or ``out_w``, and
-``out_b``.  The port keeps the same layouts (wx [in, 4H], wh [H, 4H]), so
-conversion copies arrays and transposes nothing.  The port names a tensor
-by its flat path (``lstm.0.wx``, the module's parameter name); ``params.npz``
-holds the arrays under those names and is what ``--checkpt_dir`` points at.
+``embed``, ``lstm[l].{wx, wh, b}``, ``out_proj`` or ``out_w``, ``out_b``
+and, with the cache head, ``cache_gate.{w, b}``, ``cache_prior.{u, log_s}``
+and ``cache_calib.{t, a}`` (``b`` and ``log_s`` are 0-d).  The port keeps
+the same layouts (wx [in, 4H], wh [H, 4H]), so conversion copies arrays and
+transposes nothing.  The port names a tensor by its flat path
+(``lstm.0.wx``, ``cache_gate.b``: the module's parameter name);
+``params.npz`` holds the arrays under those names and is what
+``--checkpt_dir`` points at.
 
 optax's ``ScaleByAdamState`` (count, mu, nu; mu and nu are trees shaped like
 the parameters) converts to the port's ``training.OptState`` and back, so a
@@ -28,7 +31,8 @@ from fewshot_torch.models.lm import LSTMLM
 from fewshot_torch.models.lstm import LSTMLayer
 
 _HEAD = ("out_proj", "out_w")
-_TOP = {"embed", "lstm", "out_b", *_HEAD}
+_CACHE = ("cache_gate", "cache_prior", "cache_calib")
+_TOP = {"embed", "lstm", "out_b", *_HEAD, *_CACHE}
 
 
 def _tensor(a) -> torch.Tensor:
@@ -47,8 +51,10 @@ def params_from_numpy(tree: dict, device: torch.device | str | None = None
         [LSTMLayer(_tensor(l["wx"]), _tensor(l["wh"]), _tensor(l["b"]))
          for l in tree["lstm"]])
     head = {k: _tensor(tree[k]) for k in _HEAD if k in tree}
+    cache = {k: {n: _tensor(v) for n, v in tree[k].items()}
+             for k in _CACHE if k in tree}
     model = LSTMLM(_tensor(tree["embed"]), lstm, _tensor(tree["out_b"]),
-                   **head)
+                   **head, **cache)
     return model.to(resolve_device(device))
 
 
@@ -63,24 +69,38 @@ def params_to_numpy(params: LSTMLM) -> dict:
     for k in _HEAD:
         if getattr(params, k) is not None:
             tree[k] = arr(getattr(params, k))
+    for k in _CACHE:
+        group = getattr(params, k)
+        if group is not None:
+            tree[k] = {n: arr(p) for n, p in group.named_parameters()}
     return tree
 
 
-def flatten(tree: dict) -> dict:
-    """{flat name: array} of a JAX LSTM tree (``lstm.0.wx`` ...)."""
-    flat = {k: v for k, v in tree.items() if k != "lstm"}
-    for i, layer in enumerate(tree["lstm"]):
-        for k, v in layer.items():
-            flat[f"lstm.{i}.{k}"] = v
+def flatten(tree, prefix: str = "") -> dict:
+    """{flat name: array} of a JAX LSTM tree (``lstm.0.wx``,
+    ``cache_gate.b`` ...)."""
+    flat = {}
+    items = enumerate(tree) if isinstance(tree, list) else tree.items()
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            flat.update(flatten(v, f"{prefix}{k}."))
+        else:
+            flat[f"{prefix}{k}"] = v
     return flat
 
 
 def unflatten(flat: dict) -> dict:
-    """The JAX LSTM tree of {flat name: array}."""
-    n_layers = len({k.split(".")[1] for k in flat if k.startswith("lstm.")})
-    tree = {k: v for k, v in flat.items() if not k.startswith("lstm.")}
-    tree["lstm"] = [{k: flat[f"lstm.{i}.{k}"] for k in ("wx", "wh", "b")}
-                    for i in range(n_layers)]
+    """The JAX LSTM tree of {flat name: array}: dotted names nest as
+    dicts, and ``lstm``'s layers form a list."""
+    tree: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    if "lstm" in tree:
+        tree["lstm"] = [tree["lstm"][str(i)] for i in range(len(tree["lstm"]))]
     return tree
 
 

@@ -2,8 +2,8 @@
 
 Port of ``fewshot/data/episodes.py`` (``put_corpus``, ``_choose_songs``,
 ``sample_episode``, ``sample_episode_for_artists``, ``sample_lm_batch``,
-``gather_episode``).  The packed corpus is moved to the device once; an
-episode is then a gather of song rows.
+``split_song_pool``, ``gather_episode``).  The packed corpus is moved to
+the device once; an episode is then a gather of song rows.
 
 Song choice follows the JAX sampler's semantics: an artist with at least
 K+Q songs gives K+Q distinct songs, uniformly without replacement; for an
@@ -138,6 +138,13 @@ def sample_lm_batch(gen: torch.Generator, data: CorpusOnDevice,
                          device=data.songs.device)
     ids = song_pool[pick]
     return data.songs[ids], data.song_len[ids]
+
+
+def split_song_pool(corpus, split: str) -> np.ndarray:
+    """Host-side: all song ids whose artist belongs to `split` (int32)."""
+    artists = set(int(a) for a in corpus.splits[split])
+    mask = np.array([int(a) in artists for a in corpus.song_artist])
+    return np.nonzero(mask)[0].astype(np.int32)
 
 
 def gather_episode(data: CorpusOnDevice, song_ids: torch.Tensor,

@@ -1,17 +1,23 @@
-"""Language-model head, losses and LSTM episodic conditioning.
+"""Language-model head, losses, LSTM episodic conditioning and the
+neural-cache head.
 
-Port of the LSTM, no-cache part of ``fewshot/models/lm.py``: ``init_lm``
-with the same parameter tree, ``embed``, the embedding fold
-``_lstm_embed``, ``head_logits`` with its [H, V] pre-contract gate,
-``lm_logits``, ``token_nll`` (both branches), ``sequence_nll``,
-``shift_targets``, ``lm_nll_stats``, ``support_state`` and
-``episodic_nll_stats`` for ``state`` and ``mean_state``.  Every matmul that
-the JAX code runs at the compute dtype with fp32 accumulation goes through
-``models.lstm.matmul_f32``, which reproduces it, gradients included (the
-grad of a rounded operand is rounded to the compute dtype, as JAX's dot
-transpose does).  The transformer, the neural-cache head, the fused
-head+CE kernels, the finetune variant and dropout in training are later
-slices of the port and raise ``NotImplementedError``.
+Port of the LSTM part of ``fewshot/models/lm.py``: ``init_lm`` with the same
+parameter tree (cache parameters included), ``embed``, the embedding fold
+``_lstm_embed``, ``head_logits`` with its [H, V] pre-contract gate, the fused
+head ``fused_head_eligible`` / ``head_lse_target`` (kernels 5 and 6,
+``ops/head_ce.py``), ``lm_logits``, ``token_nll`` (both branches),
+``sequence_nll``, ``shift_targets``, ``lm_nll_stats``, ``support_state``,
+the cache head (``support_counts``, ``cache_posterior_parts``,
+``dynamic_cache_target_logp``, ``support_log_cache``, ``cache_token_nll``,
+``lm_target_logp``, ``cache_mix_stats``) and ``episodic_nll_stats`` for
+``state``, ``mean_state`` and ``none``, with and without the cache and the
+fused head.  Every matmul that the JAX code runs at the compute dtype with
+fp32 accumulation goes through ``models.lstm.matmul_f32``, which reproduces
+it, gradients included (the grad of a rounded operand is rounded to the
+compute dtype, as JAX's dot transpose does); ``stop_gradient`` is
+``detach``.  The transformer, the finetune variant and dropout in training
+are later slices of the port and raise ``NotImplementedError``; so does
+sampling with the cache head (``sampling.check_servable``).
 """
 
 from __future__ import annotations
@@ -19,15 +25,31 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fewshot_torch.device import resolve_device
 from fewshot_torch.models import lstm as lstm_mod
 from fewshot_torch.models.lstm import matmul_f32
+from fewshot_torch.ops import head_ce
 
 # Vocab size up to which the JAX package embeds by one-hot matmul; the
 # embedding fold is eligible only below it.
 ONEHOT_VOCAB_MAX = 1024
+# The cache posterior's uniform smoothing pseudo-count per token, and the
+# size of the count-calibration table (counts past it extend the last slot
+# multiplicatively).
+CACHE_ALPHA = 0.01
+CACHE_CALIB_MAX = 32
+
+
+class ParamGroup(nn.Module):
+    """A named group of parameters, one JAX sub-dict (``cache_gate`` ...)."""
+
+    def __init__(self, **tensors: torch.Tensor):
+        super().__init__()
+        for name, value in tensors.items():
+            self.register_parameter(name, nn.Parameter(value))
 
 
 class LSTMLM(nn.Module):
@@ -35,11 +57,16 @@ class LSTMLM(nn.Module):
 
     embed [V, E]; lstm[l].{wx [in, 4H], wh [H, 4H], b [4H]}; out_proj
     [H, E] (tied head with H != E) or out_w [H, V] (untied head); out_b
-    [V].  Absent entries are None."""
+    [V]; with the cache head, cache_gate.{w [H], b []}, cache_prior.{u [V],
+    log_s []} (global backoff) and cache_calib.{t [32], a [32]} (calib;
+    ``a`` with calib_freq).  Absent entries are None."""
 
     def __init__(self, embed: torch.Tensor, lstm: nn.ModuleList,
                  out_b: torch.Tensor, out_proj: torch.Tensor | None = None,
-                 out_w: torch.Tensor | None = None):
+                 out_w: torch.Tensor | None = None,
+                 cache_gate: dict | None = None,
+                 cache_prior: dict | None = None,
+                 cache_calib: dict | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed)
         self.lstm = lstm
@@ -47,6 +74,10 @@ class LSTMLM(nn.Module):
         for name, value in (("out_proj", out_proj), ("out_w", out_w)):
             self.register_parameter(
                 name, None if value is None else nn.Parameter(value))
+        for name, group in (("cache_gate", cache_gate),
+                            ("cache_prior", cache_prior),
+                            ("cache_calib", cache_calib)):
+            setattr(self, name, None if group is None else ParamGroup(**group))
 
 
 def compute_dtype(cfg) -> torch.dtype:
@@ -58,25 +89,9 @@ def check_supported(cfg) -> None:
     if cfg.model != "lstm":
         raise NotImplementedError(
             "model='transformer' is not ported yet (a later slice)")
-    if cfg.support_cache:
-        raise NotImplementedError(
-            "support_cache=True (the neural-cache head) is not ported yet "
-            "(a later slice)")
     if cfg.support_mode == "finetune":
         raise NotImplementedError(
             "support_mode='finetune' is not ported yet (a later slice)")
-
-
-def check_fused_head(params: LSTMLM, cfg) -> None:
-    """Raise where the JAX package scores with the fused head+CE kernels
-    (V > 1024 under cell='pallas', a lane-aligned head width): they are a
-    later slice (the cache-head slice)."""
-    d = params.embed.shape[1] if cfg.tie_embeddings else params.out_w.shape[0]
-    if (cfg.cell == "pallas" and _vocab(params, cfg) > ONEHOT_VOCAB_MAX
-            and d % 128 == 0):
-        raise NotImplementedError(
-            "the fused head+CE kernels (V > 1024 with cell='pallas') are not "
-            "ported yet (the cache-head slice)")
 
 
 def _vocab(params: LSTMLM, cfg) -> int:
@@ -94,7 +109,8 @@ def init_lm(cfg, vocab_size: int, generator: torch.Generator,
     """Random parameters with the JAX package's distributions and tree.
 
     generator: a CPU generator, so a seed gives the same weights on any
-    device.  The numbers differ from JAX's init for the same seed."""
+    device.  The numbers differ from JAX's init for the same seed; the
+    cache parameters are deterministic (the JAX package's init values)."""
     check_supported(cfg)
     dev = resolve_device(device)
     e, h = cfg.embed_dim, cfg.hidden_dim
@@ -106,8 +122,24 @@ def init_lm(cfg, vocab_size: int, generator: torch.Generator,
             out_proj = _glorot((h, e), generator)
     else:
         out_w = _glorot((h, vocab_size), generator)
-    return LSTMLM(emb, lstm, torch.zeros(vocab_size), out_proj,
-                  out_w).to(dev)
+    cache = {}
+    if cfg.support_cache:
+        # b = -1 starts the cache weight low (~0.27); the global backoff
+        # starts as the uniform one (u = 0, s = CACHE_ALPHA V) and the
+        # calibration as the identity (t[c] = log c, a = 0)
+        cache["cache_gate"] = {"w": torch.zeros(h),
+                               "b": torch.tensor(-1.0)}
+        if cfg.cache_backoff == "global":
+            cache["cache_prior"] = {
+                "u": torch.zeros(vocab_size),
+                "log_s": torch.log(torch.tensor(CACHE_ALPHA * vocab_size))}
+        if cfg.cache_calib:
+            cache["cache_calib"] = {"t": torch.log(torch.arange(
+                1, CACHE_CALIB_MAX + 1, dtype=torch.float32))}
+            if cfg.cache_calib_freq:
+                cache["cache_calib"]["a"] = torch.zeros(CACHE_CALIB_MAX)
+    return LSTMLM(emb, lstm, torch.zeros(vocab_size), out_proj, out_w,
+                  **cache).to(dev)
 
 
 def head_logits(params: LSTMLM, hidden: torch.Tensor, cfg) -> torch.Tensor:
@@ -129,6 +161,36 @@ def head_logits(params: LSTMLM, hidden: torch.Tensor, cfg) -> torch.Tensor:
     else:
         logits = matmul_f32(hidden, params.out_w, dt)
     return logits + params.out_b
+
+
+def fused_head_eligible(params: LSTMLM, cfg, vocab_size: int) -> bool:
+    """Score through the fused head+CE kernels (``ops/head_ce.py``)?  As in
+    the JAX package: cell='pallas', V above the one-hot threshold, and the
+    kernels' plan holding for the head's inner dimension."""
+    if cfg.cell != "pallas" or vocab_size <= ONEHOT_VOCAB_MAX:
+        return False
+    d = params.embed.shape[1] if cfg.tie_embeddings else params.out_w.shape[0]
+    return head_ce.fused_head_nll_supported(d, vocab_size,
+                                            compute_dtype(cfg))
+
+
+def head_lse_target(params: LSTMLM, hidden: torch.Tensor,
+                    targets: torch.Tensor, cfg):
+    """Fused per-position (logsumexp, target logit) of the head logits,
+    without the [.., V] logits: hidden [.., H], targets [..] -> two [..]
+    fp32 tensors.  h2 is the out_proj product (tied head) rounded to the
+    compute dtype; w = embed^T or out_w."""
+    dt = compute_dtype(cfg)
+    h2 = hidden
+    if cfg.tie_embeddings:
+        if params.out_proj is not None:
+            h2 = matmul_f32(hidden, params.out_proj, dt)
+        w = params.embed.T
+    else:
+        w = params.out_w
+    lse, tl = head_ce.head_lse_tgt(h2.to(dt).reshape(-1, w.shape[0]), w,
+                                   params.out_b, targets.reshape(-1))
+    return lse.reshape(targets.shape), tl.reshape(targets.shape)
 
 
 def embed(params: LSTMLM, tokens: torch.Tensor) -> torch.Tensor:
@@ -168,12 +230,15 @@ def shift_targets(tokens: torch.Tensor, lengths: torch.Tensor):
 
 def lm_logits(params: LSTMLM, tokens: torch.Tensor, cfg,
               mask: torch.Tensor | None = None, state=None,
-              eval_mode: bool = False):
+              eval_mode: bool = False, with_hidden: bool = False,
+              no_head: bool = False):
     """tokens [B, T] -> (logits [B, T, V] fp32, final per-layer state).
 
-    eval_mode: the caller will not differentiate (admits the forward-only
-    fused stack, as in the JAX package).  No dropout: train mode with
-    cfg.dropout > 0 raises."""
+    with_hidden=True also returns the pre-head hidden states (the cache
+    gate's input); no_head=True skips the head and returns (None, state,
+    hidden), for the fused head+CE path.  eval_mode: the caller will not
+    differentiate (admits the forward-only fused stack, as in the JAX
+    package).  No dropout: train mode with cfg.dropout > 0 raises."""
     check_supported(cfg)
     if not eval_mode and cfg.dropout > 0:
         raise NotImplementedError(
@@ -183,6 +248,10 @@ def lm_logits(params: LSTMLM, tokens: torch.Tensor, cfg,
         params.lstm, x, mask=mask, state=state,
         compute_dtype=compute_dtype(cfg), cell=cfg.cell, eval_mode=eval_mode,
         zx0=zx0)
+    if no_head:
+        return None, state, hidden
+    if with_hidden:
+        return head_logits(params, hidden, cfg), state, hidden
     return head_logits(params, hidden, cfg), state
 
 
@@ -201,6 +270,145 @@ def token_nll(logits: torch.Tensor, targets: torch.Tensor,
         ce = torch.logsumexp(logits, dim=-1) - logits.gather(-1, idx)[..., 0]
     m = mask.float()
     return (ce * m).sum(), m.sum()
+
+
+# ---------------------------------------------------------------------------
+# neural-cache head (cfg.support_cache)
+# ---------------------------------------------------------------------------
+
+def support_counts(support: torch.Tensor, support_len: torch.Tensor,
+                   vocab_size: int) -> torch.Tensor:
+    """[B, V] fp32 token counts over the support set's target positions
+    (targets 1..len-1, PAD masked).  A scatter-add: the JAX package's
+    one-hot sum would be [B, K, L-1, V]; both give the same integers."""
+    _, targets, mask = shift_targets(support, support_len)    # [B, K, L-1]
+    b = targets.shape[0]
+    counts = torch.zeros((b, vocab_size), device=targets.device)
+    return counts.scatter_add_(1, targets.reshape(b, -1),
+                               mask.reshape(b, -1).float())
+
+
+def cache_posterior_parts(params: LSTMLM, support: torch.Tensor,
+                          support_len: torch.Tensor, vocab_size: int):
+    """(phi [B, V], total [B, 1], s [], p_global [V]); the cache posterior
+    is (phi + s p_global) / (total + s).
+
+    phi: the raw support counts, or with cache_calib the learned
+    calibration phi(c) = exp(t[c] (+ a[c] x(w))) c / min(c, 32), x the
+    word's centred log global frequency (no gradient into u through it).
+    (s, p_global): CACHE_ALPHA V pseudo-counts of the uniform, or the
+    learned backoff exp(log_s), softmax(u).  The calibration tables are
+    read by one-hot products, as in the JAX package: PyTorch's index
+    backward serialises on a 32-row table under B V indices."""
+    counts = support_counts(support, support_len, vocab_size)
+    prior = params.cache_prior
+    dev = counts.device
+    if prior is None:
+        s = torch.tensor(CACHE_ALPHA * vocab_size, device=dev)
+        p_global = torch.full((vocab_size,), 1.0 / vocab_size, device=dev)
+        log_pg = torch.full((vocab_size,), -math.log(vocab_size), device=dev)
+    else:
+        s = torch.exp(prior.log_s.float())
+        log_pg = torch.log_softmax(prior.u.float(), dim=-1)
+        p_global = torch.exp(log_pg)
+    calib = params.cache_calib
+    if calib is None:
+        phi = counts
+    else:
+        idx = (counts.long() - 1).clamp(0, CACHE_CALIB_MAX - 1)
+        c_cap = counts.clamp(1.0, float(CACHE_CALIB_MAX))
+        hot = torch.nn.functional.one_hot(idx, CACHE_CALIB_MAX).float()
+        t = calib.t.float()
+        a = getattr(calib, "a", None)
+        if a is not None:
+            x = (math.log(vocab_size) + log_pg).detach()          # [V]
+            ta = hot @ torch.stack([t, a.float()], dim=-1)         # [B,V,2]
+            log_phi = ta[..., 0] + ta[..., 1] * x
+        else:
+            log_phi = hot @ t
+        phi = torch.where(counts > 0, torch.exp(log_phi) * (counts / c_cap),
+                          torch.zeros_like(counts))
+    total = phi.sum(dim=-1, keepdim=True)
+    return phi, total, s, p_global
+
+
+def dynamic_cache_target_logp(phi, total, s, p_global, targets, mask):
+    """[rows, T] cache-branch log-prob at each target with the query's own
+    raw prefix counts added (cache_dynamic):
+    log(phi(w_t) + c_prefix(t, w_t) + s p(w_t)) - log(total + len_prefix(t)
+    + s), over the same masked positions NLL scores."""
+    t_ = targets.shape[-1]
+    eq = targets[:, :, None] == targets[:, None, :]           # [rows, T, T]
+    tri = torch.ones((t_, t_), dtype=torch.bool,
+                     device=targets.device).tril(-1)
+    m = mask.float()
+    c_pre = ((eq & tri).float() * m[:, None, :]).sum(dim=-1)   # [rows, T]
+    plen = torch.cumsum(m, dim=-1) - m                         # exclusive
+    phi_t = phi.gather(-1, targets)
+    return (torch.log(phi_t + c_pre + s * p_global[targets])
+            - torch.log(total + plen + s))
+
+
+def support_log_cache(params: LSTMLM, support: torch.Tensor,
+                      support_len: torch.Tensor,
+                      vocab_size: int) -> torch.Tensor:
+    """[B, V] log-probs of the support-count posterior (the cache)."""
+    phi, total, s, p_global = cache_posterior_parts(
+        params, support, support_len, vocab_size)
+    return torch.log(phi + s * p_global[None]) - torch.log(total + s)
+
+
+def lm_target_logp(logits: torch.Tensor, targets: torch.Tensor
+                   ) -> torch.Tensor:
+    """[.., T] log-softmax of the logits at the targets (log_softmax form
+    up to ONEHOT_VOCAB_MAX, lse form above, as in the JAX package)."""
+    logits = logits.float()
+    idx = targets[..., None]
+    if logits.shape[-1] <= ONEHOT_VOCAB_MAX:
+        return torch.log_softmax(logits, dim=-1).gather(-1, idx)[..., 0]
+    return (logits.gather(-1, idx)[..., 0]
+            - torch.logsumexp(logits, dim=-1))
+
+
+def cache_token_nll(params: LSTMLM, logits, hidden, log_cache, targets, mask,
+                    lm_aux: float = 0.0, resp_floor: float = 0.0):
+    """(sum CE, count) under the cache mixture from the target entries of
+    both branches, without the [.., V] mixture.  logits/hidden [rows, T, *];
+    log_cache [rows, V]; targets/mask [rows, T].  The cache entry is a
+    one-hot product up to ONEHOT_VOCAB_MAX and a gather above, as in the
+    JAX package."""
+    v = logits.shape[-1]
+    lm_t = lm_target_logp(logits, targets)
+    if v <= ONEHOT_VOCAB_MAX:
+        hot = torch.nn.functional.one_hot(targets, v).float()
+        cache_t = torch.einsum("rtv,rv->rt", hot, log_cache)
+    else:
+        cache_t = log_cache.gather(-1, targets)
+    return cache_mix_stats(params, hidden, lm_t, cache_t, mask, lm_aux,
+                           resp_floor)
+
+
+def cache_mix_stats(params: LSTMLM, hidden, lm_t, cache_t, mask,
+                    lm_aux: float = 0.0, resp_floor: float = 0.0):
+    """(sum CE, count) of the gated mixture (1-g) p_lm + g p_cache, g =
+    sigmoid(hidden . w + b), from the two branches' target log-probs.
+
+    lm_aux > 0 (train only) adds lm_aux x the LM branch's log-prob;
+    resp_floor > 0 (train only) adds the zero-valued term relu(floor -
+    sg(r_lm)) (lm_t - sg(lm_t)), which lifts the LM branch's gradient
+    multiplier r_lm = (1-g) p_lm / p_mix to at least the floor."""
+    gate = params.cache_gate
+    z = hidden.float() @ gate.w + gate.b
+    mixed_t = torch.logaddexp(F.logsigmoid(-z) + lm_t,
+                              F.logsigmoid(z) + cache_t)
+    if resp_floor:
+        r_lm = torch.exp(F.logsigmoid(-z) + lm_t - mixed_t).detach()
+        coef = torch.relu(resp_floor - r_lm)
+        mixed_t = mixed_t + coef * (lm_t - lm_t.detach())
+    if lm_aux:
+        mixed_t = mixed_t + lm_aux * lm_t
+    m = mask.float()
+    return -(mixed_t * m).sum(), m.sum()
 
 
 def sequence_nll(logits: torch.Tensor, targets: torch.Tensor,
@@ -252,15 +460,26 @@ def support_state(params: LSTMLM, support: torch.Tensor,
 def episodic_nll_stats(params: LSTMLM, ep, cfg, eval_mode: bool = False):
     """(sum CE over query tokens, query token count) for a meta-batch.
 
-    The LSTM branch of the JAX function without cache head or fused head:
-    the support state (support_mode state or mean_state) primes each
-    episode's Q query songs, which run as one [B*Q, L-1] batch.  In
-    mean_state mode the support pass's top-layer outputs are unused, so its
-    gradient arrives only through the final state (mean, then repeat)."""
+    The LSTM branch of the JAX function: the support state (support_mode
+    state or mean_state; none for an unconditioned model) primes each
+    episode's Q query songs, which run as one [B*Q, L-1] batch.  The head
+    is the fused head+CE (``fused_head_eligible``) or the dense logits; the
+    loss is plain CE or, with support_cache, the gated cache mixture
+    (static or dynamic cache).  eval_mode forces cache_lm_aux and
+    cache_resp_floor to 0, so every reported NLL is the pure mixture.  In
+    mean_state mode the support pass's top-layer outputs are unused, so
+    its gradient arrives only through the final state (mean, then
+    repeat)."""
     check_supported(cfg)
-    check_fused_head(params, cfg)
+    lm_aux = 0.0 if eval_mode else cfg.cache_lm_aux
+    resp_floor = 0.0 if eval_mode else cfg.cache_resp_floor
     b, q_, l_ = ep.query.shape
     inputs, targets, mask = shift_targets(ep.query, ep.query_len)
+    flat_inputs = inputs.reshape(b * q_, l_ - 1)
+    flat_targets = targets.reshape(b * q_, l_ - 1)
+    flat_mask = mask.reshape(b * q_, l_ - 1)
+    v_total = _vocab(params, cfg)
+    fused = fused_head_eligible(params, cfg, v_total)
     state = None
     if cfg.support_mode in ("state", "mean_state"):
         state = support_state(params, ep.support, ep.support_len, cfg,
@@ -268,8 +487,42 @@ def episodic_nll_stats(params: LSTMLM, ep, cfg, eval_mode: bool = False):
         # each episode's state over its Q query songs
         state = [(h.repeat_interleave(q_, dim=0),
                   c.repeat_interleave(q_, dim=0)) for h, c in state]
-    logits, _ = lm_logits(params, inputs.reshape(b * q_, l_ - 1), cfg,
-                          mask=mask.reshape(b * q_, l_ - 1), state=state,
-                          eval_mode=eval_mode)
-    return token_nll(logits, targets.reshape(b * q_, l_ - 1),
-                     mask.reshape(b * q_, l_ - 1))
+    hidden = None
+    if cfg.support_cache or fused:
+        logits, _, hidden = lm_logits(params, flat_inputs, cfg,
+                                      mask=flat_mask, state=state,
+                                      eval_mode=eval_mode, with_hidden=True,
+                                      no_head=fused)
+    else:
+        logits, _ = lm_logits(params, flat_inputs, cfg, mask=flat_mask,
+                              state=state, eval_mode=eval_mode)
+
+    def lm_branch():
+        if fused:
+            lse, tl = head_lse_target(params, hidden, flat_targets, cfg)
+            return tl - lse
+        return lm_target_logp(logits, flat_targets)
+
+    if cfg.support_cache:
+        # one [B, V] cache per episode, over its Q query songs
+        if cfg.cache_dynamic:
+            phi, total, s, p_global = cache_posterior_parts(
+                params, ep.support, ep.support_len, v_total)
+            cache_t = dynamic_cache_target_logp(
+                phi.repeat_interleave(q_, dim=0),
+                total.repeat_interleave(q_, dim=0), s, p_global,
+                flat_targets, flat_mask)
+            return cache_mix_stats(params, hidden, lm_branch(), cache_t,
+                                   flat_mask, lm_aux, resp_floor)
+        log_cache = support_log_cache(params, ep.support, ep.support_len,
+                                      v_total).repeat_interleave(q_, dim=0)
+        if fused:
+            return cache_mix_stats(params, hidden, lm_branch(),
+                                   log_cache.gather(-1, flat_targets),
+                                   flat_mask, lm_aux, resp_floor)
+        return cache_token_nll(params, logits, hidden, log_cache,
+                               flat_targets, flat_mask, lm_aux, resp_floor)
+    if fused:
+        m = flat_mask.float()
+        return (-lm_branch() * m).sum(), m.sum()
+    return token_nll(logits, flat_targets, flat_mask)

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's CUDA kernels; what their wrappers share.
 
 Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, then loaded with ``ctypes``: a
 source without PyTorch's headers builds in seconds.  The wrappers check the
 tensors' device, dtype, shape and contiguity before they pass pointers, and
-launch with the tensors' device current.  The library goes into ``.torch_ext/`` at the repository root (ignored by git),
-named by a hash of its source and flags, so an edited source is rebuilt and
+launch with the tensors' device current (the helpers below).  The library
+goes into ``.torch_ext/`` at the repository root (ignored by git), named by
+a hash of its source and flags, so an edited source is rebuilt and
 an unchanged one is reused.  Nothing is built or loaded at import: the first
 kernel launch builds.
 """
@@ -19,6 +20,8 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".torch_ext"
@@ -37,7 +40,14 @@ SIGNATURES = {
         "lstm_bwd_layer": [_P] * 10 + [_I] * 4 + [_P],
         "lstm_bwd_stack": [_P] * 11 + [_I] * 5 + [_P],
     },
+    "head_ce": {
+        "head_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],
+        "head_ce_bwd": [_P] * 10 + [_I] * 5 + [_P],
+    },
 }
+
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype arg
+SMEM_BYTES = 227 * 1024        # shared memory one block may use (H100)
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -91,3 +101,33 @@ def check(err: int, fn: str) -> None:
     """Raise if a C entry point reported a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{fn}: CUDA error {err} at launch")
+
+
+def itemsize(dtype: torch.dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def stream(x: torch.Tensor) -> int:
+    """The handle of x's device's current stream, the launches' last
+    argument."""
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def check_tensors(*tensors: torch.Tensor) -> None:
+    """The kernels take contiguous tensors on one device, 16-byte aligned
+    (they stage 16-byte pieces)."""
+    for x in tensors:
+        if x.device != tensors[0].device or not x.is_contiguous():
+            raise ValueError("inputs must be contiguous, on one device")
+        if x.data_ptr() % 16:
+            raise ValueError("inputs must be 16-byte aligned")
+
+
+def contiguous_as(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A contiguous copy of x (any strides) in dtype, in one pass."""
+    return torch.empty(x.shape, dtype=dtype, device=x.device).copy_(x)
+
+
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """True where autograd will ask for a backward through a kernel."""
+    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)

@@ -26,14 +26,9 @@ import torch
 
 from fewshot_torch.models.lstm import FORGET_BIAS, cell_update, matmul_f32
 from fewshot_torch.ops import _ext
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_BYTES = 227 * 1024        # shared memory one block may use (H100)
-
-
-def _itemsize(dtype: torch.dtype) -> int:
-    return torch.empty((), dtype=dtype).element_size()
-
+from fewshot_torch.ops._ext import (DTYPE_CODE, SMEM_BYTES, check_tensors,
+                                    contiguous_as, itemsize, needs_grad,
+                                    stream)
 
 def max_hidden(dtype: torch.dtype) -> int:
     """The largest hidden size the forward kernels take in dtype.
@@ -41,8 +36,8 @@ def max_hidden(dtype: torch.dtype) -> int:
     Their narrowest tile (csrc/lstm_fwd.cu: 16 rows x 4 units) stages 16
     fp32 h rows of H + 4 floats and the H x 16 weight columns of its units
     in shared memory."""
-    per_unit = 16 * 4 + 16 * _itemsize(dtype)
-    return (_SMEM_BYTES - 16 * 4 * 4) // per_unit // 32 * 32
+    per_unit = 16 * 4 + 16 * itemsize(dtype)
+    return (SMEM_BYTES - 16 * 4 * 4) // per_unit // 32 * 32
 
 
 def max_hidden_bwd(dtype: torch.dtype) -> int:
@@ -51,13 +46,8 @@ def max_hidden_bwd(dtype: torch.dtype) -> int:
     Their narrowest tile (csrc/lstm_bwd.cu: 16 rows x 4 units) stages 16
     rows of dz and the 4 Wh rows of its units, each 4H wide in dtype plus
     16 bytes of padding."""
-    per_row = _SMEM_BYTES // 20 - 16
-    return per_row // (4 * _itemsize(dtype)) // 32 * 32
-
-
-def contiguous_as(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A contiguous copy of x (any strides) in dtype, in one pass."""
-    return torch.empty(x.shape, dtype=dtype, device=x.device).copy_(x)
+    per_row = SMEM_BYTES // 20 - 16
+    return per_row // (4 * itemsize(dtype)) // 32 * 32
 
 
 def _check_fp32(want: dict) -> None:
@@ -70,7 +60,7 @@ def _check_fp32(want: dict) -> None:
 def _check_inputs(zx, wh, b, mask, h0, c0) -> None:
     t_, b_, four_h = zx.shape
     hidden = four_h // 4
-    if zx.dtype not in _DTYPE_CODE or wh.dtype != zx.dtype:
+    if zx.dtype not in DTYPE_CODE or wh.dtype != zx.dtype:
         raise TypeError(f"zx/wh must share fp32 or bf16, got {zx.dtype}, "
                         f"{wh.dtype}")
     if four_h % 4 or hidden % 32 or tuple(wh.shape) != (hidden, four_h):
@@ -85,7 +75,7 @@ def _check_inputs(zx, wh, b, mask, h0, c0) -> None:
 def _check_bwd_inputs(gates, wh, mask, cs, c0, dys, dhT, dcT) -> None:
     t_, b_, four_h = gates.shape
     hidden = four_h // 4
-    if gates.dtype not in _DTYPE_CODE or {wh.dtype, cs.dtype, dys.dtype} \
+    if gates.dtype not in DTYPE_CODE or {wh.dtype, cs.dtype, dys.dtype} \
             != {gates.dtype}:
         raise TypeError("gates/wh/cs/dys must share fp32 or bf16")
     if hidden % 32 or tuple(wh.shape) != (hidden, four_h) \
@@ -118,20 +108,6 @@ def check_hidden_bwd(hidden: int, dtype: torch.dtype) -> None:
             f"of {max_hidden_bwd(dtype)} for {dtype} (one block's shared "
             f"memory holds 16 rows of the 4H-deep contraction); train at a "
             f"smaller hidden size")
-
-
-def check_tensors(*tensors: torch.Tensor) -> None:
-    """The kernels take contiguous tensors on one device, 16-byte aligned
-    (the backward stages 16-byte pieces)."""
-    for x in tensors:
-        if x.device != tensors[0].device or not x.is_contiguous():
-            raise ValueError("inputs must be contiguous, on one device")
-        if x.data_ptr() % 16:
-            raise ValueError("inputs must be 16-byte aligned")
-
-
-def _stream(x: torch.Tensor):
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def cell_bwd(g, c_t, c_prev, dh, dc, mf):
@@ -218,7 +194,7 @@ def lstm_layer_fwd(zx, wh, b, mask, h0, c0, save_gates=False):
             zx.data_ptr(), wh.data_ptr(), b.data_ptr(), mask.data_ptr(),
             h_buf.data_ptr(), c.data_ptr(), ys.data_ptr(), cs.data_ptr(),
             gates.data_ptr() if save_gates else None, t_, b_, hidden,
-            _DTYPE_CODE[zx.dtype], _stream(zx))
+            DTYPE_CODE[zx.dtype], stream(zx))
     _ext.check(err, "lstm_fwd_layer")
     lstm_layer_fwd.launches += 1
     out = (ys, cs, h_buf[t_ % 2], c)
@@ -279,7 +255,7 @@ def lstm_layer_bwd(gates, wh, mask, cs, c0, dys, dhT, dcT):
             gates.data_ptr(), wh.data_ptr(), mask.data_ptr(), cs.data_ptr(),
             c0.data_ptr(), dys.data_ptr(), dh.data_ptr(), dc.data_ptr(),
             dzx.data_ptr(), db.data_ptr(), t_, b_, four_h // 4,
-            _DTYPE_CODE[gates.dtype], _stream(gates))
+            DTYPE_CODE[gates.dtype], stream(gates))
     _ext.check(err, "lstm_bwd_layer")
     lstm_layer_bwd.launches += 1
     return dzx, dh, dc, db.sum(dim=0)
@@ -330,10 +306,6 @@ class LSTMLayerFn(torch.autograd.Function):
         else:
             dwh = weight_grad(h0, ys, dzx).to(wh.dtype)
         return dzx, dwh, db, None, dh0, dc0
-
-
-def needs_grad(*tensors: torch.Tensor) -> bool:
-    return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
 
 
 def lstm_layer_pallas(layer, x, mask, h0c0, compute_dtype, zx=None):

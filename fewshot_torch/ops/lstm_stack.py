@@ -23,17 +23,17 @@ import torch
 
 from fewshot_torch.models.lstm import cell_update, matmul_f32
 from fewshot_torch.ops import _ext
-from fewshot_torch.ops.lstm_layer import (_DTYPE_CODE, _check_fp32, _stream,
-                                          cell_bwd, check_hidden,
-                                          check_hidden_bwd, check_tensors,
-                                          contiguous_as, gate_acts,
-                                          needs_grad, weight_grad)
+from fewshot_torch.ops._ext import (DTYPE_CODE, check_tensors, contiguous_as,
+                                    needs_grad, stream)
+from fewshot_torch.ops.lstm_layer import (_check_fp32, cell_bwd, check_hidden,
+                                          check_hidden_bwd, gate_acts,
+                                          weight_grad)
 
 
 def _check_inputs(zx, wx_rest, wh, b, mask, h0, c0) -> None:
     t_, b_, four_h = zx.shape
     n_layers, hidden = wh.shape[0], four_h // 4
-    if zx.dtype not in _DTYPE_CODE or wh.dtype != zx.dtype \
+    if zx.dtype not in DTYPE_CODE or wh.dtype != zx.dtype \
             or wx_rest.dtype != zx.dtype:
         raise TypeError("zx/wx_rest/wh must share fp32 or bf16")
     if n_layers < 2:
@@ -53,7 +53,7 @@ def _check_bwd_inputs(gates, wx_rest, wh, mask, cs, c0, dys, dhT,
                       dcT) -> None:
     n_layers, t_, b_, four_h = gates.shape
     hidden = four_h // 4
-    if gates.dtype not in _DTYPE_CODE or \
+    if gates.dtype not in DTYPE_CODE or \
             {wx_rest.dtype, wh.dtype, cs.dtype, dys.dtype} != {gates.dtype}:
         raise TypeError("gates/wx_rest/wh/cs/dys must share fp32 or bf16")
     if n_layers < 2:
@@ -147,7 +147,7 @@ def lstm_stack_fwd(zx, wx_rest, wh, b, mask, h0, c0, save_gates=False):
             zx.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(), b.data_ptr(),
             mask.data_ptr(), h_buf.data_ptr(), c.data_ptr(), ys.data_ptr(),
             cs.data_ptr(), gates.data_ptr() if save_gates else None, t_, b_,
-            hidden, n_layers, _DTYPE_CODE[zx.dtype], _stream(zx))
+            hidden, n_layers, DTYPE_CODE[zx.dtype], stream(zx))
     _ext.check(err, "lstm_fwd_stack")
     lstm_stack_fwd.launches += 1
     out = (ys, cs, h_buf[t_ % 2], c)
@@ -217,8 +217,8 @@ def lstm_stack_bwd(gates, wx_rest, wh, mask, cs, c0, dys, dhT, dcT):
             gates.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(),
             mask.data_ptr(), cs.data_ptr(), c0.data_ptr(), dys.data_ptr(),
             dh.data_ptr(), dc.data_ptr(), dzx.data_ptr(), db.data_ptr(), t_,
-            b_, four_h // 4, n_layers, _DTYPE_CODE[gates.dtype],
-            _stream(gates))
+            b_, four_h // 4, n_layers, DTYPE_CODE[gates.dtype],
+            stream(gates))
     _ext.check(err, "lstm_bwd_stack")
     lstm_stack_bwd.launches += 1
     return dzx, dh, dc, db.sum(dim=0)

@@ -31,6 +31,20 @@ from fewshot_torch.models import lstm as lstm_mod
 EXIT_CHECK_EVERY = 8
 
 
+def check_servable(cfg) -> None:
+    """Raise for configurations the port cannot sample from yet: those
+    that ``lm.check_supported`` refuses, and the cache head, whose mixture
+    over the support counts the decode loop does not build yet (a later
+    slice).  Training and evaluation take the cache head."""
+    lm_mod.check_supported(cfg)
+    if cfg.support_cache:
+        raise NotImplementedError(
+            "sampling and serving with support_cache=True (the cache "
+            "head's mixture in the decode loop) are not ported yet (a later "
+            "slice); train and evaluate such a model with fewshot_torch."
+            "training")
+
+
 def row_generator(seed: int, stream: int,
                   device: torch.device | str = "cpu") -> torch.Generator:
     """A generator for one row: `stream` separates the row's independent
@@ -128,7 +142,7 @@ def generate(params, support: torch.Tensor, support_len: torch.Tensor,
     i's continuation depends only on generators[i].  temperature: optional
     scalar or [B] overriding cfg.temperature.  early_exit stops once every
     row has emitted EOS; the output is the same either way."""
-    lm_mod.check_supported(cfg)
+    check_servable(cfg)
     n = n_tokens if n_tokens is not None else cfg.sample_tokens
     with torch.inference_mode():
         return sample_lstm(params, support, support_len, generators, cfg, n,

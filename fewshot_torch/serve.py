@@ -71,7 +71,7 @@ class Generator:
                  batch_deadline_ms: float = 5.0,
                  device: torch.device | str | None = None):
         self.device = resolve_device(device)
-        lm_mod.check_supported(cfg)
+        sampling_mod.check_servable(cfg)
         if cfg.dataset == "midi":
             raise NotImplementedError(
                 "MIDI serving (grammar masks) is not ported yet")

@@ -1,4 +1,4 @@
-"""Training core: optimizer, TrainState, the train step.
+"""Training core: optimizer, TrainState, the train step, evaluation.
 
 Port of ``fewshot/training.py`` on one device (``mesh=None``).  A step samples
 its episodes on the device (``data.episodes.sample_episode``), runs the
@@ -14,8 +14,9 @@ applies the optax chain of the JAX package by hand:
 * the learning rate, or ``linear_schedule(0, lr, warmup_steps)`` read at
   the count before the update (the first warm-up step has lr 0).
 
-Parameters and optimizer moments are updated in place (PyTorch tensors are
-mutable; the JAX step returns new arrays).  Nothing in a step reads a value
+Parameters (0-d ones included: the cache head's ``cache_gate.b`` and
+``cache_prior.log_s``) and optimizer moments are updated in place
+(PyTorch tensors are mutable; the JAX step returns new arrays).  Nothing in a step reads a value
 back to the host, so a later change can capture it in a CUDA graph.
 """
 
@@ -214,3 +215,42 @@ def make_multi_step(train_step, k: int):
             state, metrics = train_step(state)
         return state, metrics
     return multi
+
+
+def make_eval_step(cfg, data: CorpusOnDevice, split_artists):
+    """Eval on one batch sampled on the device: (params, gen) -> (ce_sum,
+    count), forward only (eval_mode: no aux terms, no grads)."""
+    def eval_step(params, gen: torch.Generator):
+        with torch.no_grad():
+            return _loss_stats(params, cfg, data, split_artists, gen,
+                               cfg.batch_size)
+    return eval_step
+
+
+def make_fed_eval_step(cfg):
+    """Eval on a fed episode: (params, episode) -> (ce_sum, count)."""
+    def eval_step(params, ep):
+        with torch.no_grad():
+            return lm_mod.episodic_nll_stats(params, ep, cfg, eval_mode=True)
+    return eval_step
+
+
+def mean_nll(step, params, gen: torch.Generator, cfg,
+             num_episodes: int | None = None) -> float:
+    """Average NLL/token of step(params, gen) -> (ce_sum, count) over
+    num_episodes // batch_size batches (at least one; cfg.eval_episodes by
+    default).  Every batch's pair is added on the device and one pair is
+    read at the end."""
+    n = num_episodes if num_episodes is not None else cfg.eval_episodes
+    stats = [torch.stack(step(params, gen))
+             for _ in range(max(1, n // cfg.batch_size))]
+    total, count = torch.stack(stats).sum(dim=0).tolist()
+    return total / max(count, 1.0)
+
+
+def evaluate(cfg, params, data: CorpusOnDevice, split_artists,
+             gen: torch.Generator, num_episodes: int | None = None) -> float:
+    """Average query NLL/token over num_episodes // batch_size batches
+    sampled from gen on the corpus device (``mean_nll``)."""
+    return mean_nll(make_eval_step(cfg, data, split_artists), params, gen,
+                    cfg, num_episodes)

@@ -18,6 +18,7 @@ import torch
 from fewshot.config import Config as JConfig
 from fewshot.models import lm as jlm
 from fewshot.models import lstm as jlstm
+from fewshot_torch import sampling, serve
 from fewshot_torch.bridge import (load_params, params_from_numpy,
                                   params_to_numpy, save_params)
 from fewshot_torch.config import Config
@@ -236,6 +237,21 @@ def test_shift_targets_matches_jax():
                                     dict(support_cache=True),
                                     dict(support_mode="finetune")])
 def test_later_slices_raise(change):
+    """The transformer and finetune raise at init.  The cache head trains
+    and evaluates (init_lm builds its parameters), but sampling and
+    serving with it are a later slice and raise."""
     cfg = dataclasses.replace(Config(**KW), **change)
-    with pytest.raises(NotImplementedError):
-        lm.init_lm(cfg, V, torch.Generator().manual_seed(0), "cpu")
+    if not cfg.support_cache:
+        with pytest.raises(NotImplementedError):
+            lm.init_lm(cfg, V, torch.Generator().manual_seed(0), "cpu")
+        return
+    params = lm.init_lm(cfg, V, torch.Generator().manual_seed(0), "cpu")
+    assert {"cache_gate.w", "cache_gate.b", "cache_prior.u",
+            "cache_prior.log_s"} <= {k for k, _ in params.named_parameters()}
+    support = torch.full((2, 3, 8), 4)
+    with pytest.raises(NotImplementedError, match="serving"):
+        sampling.generate(params, support, torch.full((2, 3), 8),
+                          [torch.Generator() for _ in range(2)], cfg,
+                          n_tokens=4)
+    with pytest.raises(NotImplementedError, match="serving"):
+        serve.Generator(cfg, None, params, device="cpu")

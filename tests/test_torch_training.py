@@ -462,6 +462,11 @@ def test_train_step_samples_on_device_and_learns():
 
 
 def test_training_later_slices_raise():
+    """Dropout in training and finetune raise.  An 1100-word model with a
+    128-wide untied head, where the JAX package scores with its fused
+    head+CE kernels, runs both routes: the fused one (cell='pallas', the
+    kernels' twins here) equals the dense one (cell='scan') in value and
+    grads."""
     from fewshot_torch.models import lm
     params = bridge.params_from_numpy(_params(1, 1), "cpu")
     ep = _episode(_inputs(), 0)
@@ -469,11 +474,22 @@ def test_training_later_slices_raise():
         cfg = _cfg(dict(num_layers=1, **kw))
         with pytest.raises(NotImplementedError):
             lm.episodic_nll_stats(params, ep, cfg)
-    # V > 1024 with a 128-wide untied head: the JAX package's fused head
+    rng = np.random.RandomState(5)
     big = {k: v for k, v in _params(1, 1).items() if k != "out_proj"}
-    big["embed"] = np.zeros((1100, E), np.float32)
-    big["out_b"] = np.zeros(1100, np.float32)
-    big["out_w"] = np.zeros((H, 1100), np.float32)
-    with pytest.raises(NotImplementedError, match="fused head"):
-        lm.episodic_nll_stats(bridge.params_from_numpy(big, "cpu"), ep,
-                              _cfg(dict(num_layers=1, tie_embeddings=False)))
+    big["embed"] = (0.3 * rng.randn(1100, E)).astype(np.float32)
+    big["out_b"] = (0.1 * rng.randn(1100)).astype(np.float32)
+    big["out_w"] = (0.1 * rng.randn(H, 1100)).astype(np.float32)
+    cfg = _cfg(dict(num_layers=1, tie_embeddings=False))
+    out = {}
+    for cell in ("pallas", "scan"):
+        model = bridge.params_from_numpy(big, "cpu")
+        c = dataclasses.replace(cfg, cell=cell)
+        assert lm.fused_head_eligible(model, c, 1100) == (cell == "pallas")
+        total, count = lm.episodic_nll_stats(model, ep, c)
+        total.backward()
+        out[cell] = (total, count, {k: p.grad for k, p in
+                                    model.named_parameters()})
+    _close(out["pallas"][0], out["scan"][0].detach())
+    assert float(out["pallas"][1]) == float(out["scan"][1])
+    for k, g in out["scan"][2].items():
+        _close(out["pallas"][2][k], g, what=k)
