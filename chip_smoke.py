@@ -44,7 +44,28 @@ Phases, each of which exits non-zero on failure:
      validation NLL (512 episodes) before and after training, which must
      fall, with the head+CE forward counted and the backward idle during
      evaluation; the episodic-unigram floor on the same split;
- 10. the card line, a {"kernels": [...]} line, then the {"ok": true, ...}
+ 10. the three prefix-attention kernels (forward, dq, dk/dv) against their
+     twins at the episodic transformer's two attention shapes (the query
+     stream: 32 episodes x 5 songs x 95 rows against a 480-key prefix; the
+     prefix stream: 32 x 480 rows, no prefix; nh=2, hd=128; bf16 and fp32;
+     ragged masks), with F.scaled_dot_product_attention over [prefix ++
+     self] under a boolean mask (and its autograd backward) as the
+     yardstick;
+ 11. training phase D, the episodic transformer with the full cache stack
+     (scripts/scale_quality.py's tfm_cache_full leg: 2 layers, E=256,
+     nh=2, mean_state, B=32) on the V=5000 corpus, as C: the attention
+     kernels' counters must show 3 launches each per step (the query
+     stream's 2 layers, the prefix stream's first: the last layer's prefix
+     tail is dead) and the head+CE kernels' one; one step's grads against
+     the plain route (einsum attention, dense head); the validation NLL
+     before and after, and the floor;
+ 12. serving phase C, the shipped transformer
+     (configs/model/transformer.yaml: 4 layers, support_mode=state, batch
+     16) on the bench corpus: the KV cache prefilled through the forward
+     kernel (its count must rise) within tolerance of the einsum route;
+ 13. the cfg.flash route (row 10: ops.attention.causal_attention with
+     use_flash) through the no-prefix kernel against the einsum route;
+ 14. the card line, a {"kernels": [...]} line, then the {"ok": true, ...}
      line.
 
 Weights are random from a seed; the corpora (the bench corpus and the
@@ -84,6 +105,12 @@ GATES_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # flip travels back through the remaining steps
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 STATE_TOL = 2e-2        # support state, kernel route vs plain route (bf16)
+# the transformer's prefilled KV cache, kernel route vs the einsum route,
+# relative to its largest entry: layer 0's K/V are the same; later layers'
+# come through attention outputs that round p at other points (the kernel
+# the unnormalised p, the einsum the normalised probs, 2^-9 each in bf16),
+# carried by the residual stream and rounded to bf16 (2^-8) on the way
+KV_TOL = 2e-2
 # one train step's grads, kernel route vs the plain route (cell="scan",
 # autograd through the step loop), relative to each leaf's largest
 # magnitude: the routes round at different points in bf16 (kernels: bf16
@@ -101,6 +128,17 @@ GRAD_TOL = 5e-2
 HEAD_FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 HEAD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 HEAD_D = E              # the tied head's inner width
+# prefix-attention kernels against their twins: out absolute, lse absolute;
+# fp32 only in summation order.  bf16: the kernels round the unnormalised p
+# against the running row maximum of their online softmax, the twins
+# against the final one (as kernels 8-9 do), 2^-9 of each p apart; the
+# backward rounds p and ds at the same points on both sides from the same
+# lse, where an fp32 p that differs in its last bit can flip one entry by a
+# bf16 step (grads relative to each output's largest)
+ATTN_HD = 128           # E = 256, nh = 2
+ATTN_FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+ATTN_LSE_TOL = 1e-4
+ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 EVAL_EPISODES = 512
 KERNEL_REPS, PLAIN_REPS = 20, 3
 ROUNDS = 3              # rounds of 7 requests per serving phase
@@ -254,10 +292,12 @@ def check_kernel(name, wrapper, plain, args, tols, relative, ops, dtype,
         errs = [max_rel(g, w) for g, w in zip(got, want)]
         finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
         checked = [e[1] if relative else e[0] for e in errs]
-        ok = finite and all(e <= t for e, t in zip(checked, tols))
+        live = all(bool(w.abs().max() > 0) for w in want)  # none all zero
+        ok = finite and live and all(e <= t for e, t in zip(checked, tols))
         ms = cuda_ms(lambda: wrapper(*args, **kw), KERNEL_REPS)
         plain_ms = cuda_ms(lambda: plain(*args, **kw), PLAIN_REPS, warmup=1)
-    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    in_bytes = sum(a.numel() * a.element_size() for a in args
+                   if isinstance(a, torch.Tensor))
     out_bytes = sum(g.numel() * g.element_size() for g in got)
     bound_ms, bound_by = bound(in_bytes + out_bytes, ops, dtype)
     rec = {"name": name, "dtype": str(dtype).replace("torch.", ""),
@@ -422,6 +462,110 @@ def head_kernel_phase(dev, rows: int, vocab: int) -> dict:
     return records
 
 
+def attn_library_ms(q, k, v, kmask, pk, pv, pmask, nh, g=None) -> float:
+    """F.scaled_dot_product_attention over each song's keys [its episode's
+    prefix, repeated per song, ++ itself] under a boolean mask (key mask,
+    causal on the self part), with g also its autograd backward: the
+    yardstick only, never called by the port."""
+    import torch.nn.functional as F
+    from fewshot_torch.ops.prefix_attention import _heads
+    s_, t, e = q.shape
+    causal = torch.ones((t, t), dtype=torch.bool, device=q.device).tril()
+    allow = (kmask[:, None, None, :] > 0) & causal             # [S,1,T,T]
+    keys, vals = _heads(k, nh), _heads(v, nh)
+    if pk is not None:
+        rep = s_ // pk.shape[0]
+        pre = (pmask > 0).repeat_interleave(rep, 0)[:, None, None, :]
+        allow = torch.cat([pre.expand(-1, 1, t, -1), allow], dim=-1)
+        keys = torch.cat([_heads(pk, nh).repeat_interleave(rep, 0), keys], 2)
+        vals = torch.cat([_heads(pv, nh).repeat_interleave(rep, 0), vals], 2)
+    leaves = [x.to(q.dtype).detach().requires_grad_(g is not None)
+              for x in (_heads(q, nh), keys, vals)]
+    gh = None if g is None else _heads(g, nh).to(q.dtype)
+
+    def run():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=allow)
+        if gh is not None:
+            out.backward(gh)
+
+    if g is not None:
+        return cuda_ms(run, KERNEL_REPS)
+    with torch.no_grad():
+        return cuda_ms(run, KERNEL_REPS)
+
+
+def attn_inputs(gen, dev, dtype, b, q_, t, p):
+    """Random streams and ragged masks at one attention shape: S = b q_
+    songs of t rows with key masks t' < len (len >= 2, so every row has a
+    real key), and (p > 0) an episode prefix of 5 support songs of p / 5
+    slots each, every song at least 1 token long."""
+    s_, e = b * q_, 2 * ATTN_HD
+    rnd = lambda *sh: torch.randn(sh, generator=gen).to(dev, dtype)  # noqa
+    lens = torch.randint(2, t + 2, (s_,), generator=gen)
+    kmask = (torch.arange(t)[None] < lens[:, None] - 1).float().to(dev)
+    if not p:
+        return (rnd(s_, t, e), rnd(s_, t, e), rnd(s_, t, e), kmask, None,
+                None, None, 2)
+    slot = p // 5
+    slens = torch.randint(1, slot + 1, (b, 5), generator=gen)
+    pmask = (torch.arange(slot)[None, None] < slens[..., None]).reshape(
+        b, p).float().to(dev)
+    return (rnd(s_, t, e), rnd(s_, t, e), rnd(s_, t, e), kmask,
+            rnd(b, p, e), rnd(b, p, e), pmask, 2)
+
+
+def attn_pairs(kmask, pmask, rep) -> float:
+    """(query row, real key) pairs the function needs: each row's real
+    prefix keys and its real own keys up to the diagonal."""
+    t = kmask.shape[1]
+    causal = torch.ones((t, t), device=kmask.device).tril()
+    pairs = float((kmask[:, None, :] * causal).sum())
+    if pmask is not None:
+        pairs += float(pmask.sum()) * rep * t
+    return pairs
+
+
+def attn_kernel_phase(dev, shapes) -> dict:
+    """The three prefix-attention kernels against their twins at the
+    training path's shapes: shapes = {label: (B, Q, T, P)}.  Bound: the
+    inputs read once and the outputs written once against the products the
+    function needs over its real (row, key) pairs: 2 in the forward (q k^T,
+    p v), 3 for dq (q k^T, g v^T, ds k), 4 for dk/dv (q k^T, g v^T, p^T g,
+    ds^T q), each 2 hd operations a pair and head."""
+    from fewshot_torch.ops import prefix_attention as pa
+    gen = torch.Generator().manual_seed(2)
+    records = {}
+    for label, (b, q_, t, p) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            args = attn_inputs(gen, dev, dtype, b, q_, t, p)
+            q, k, v, kmask, pk, pv, pmask, nh = args
+            pair_ops = 2.0 * ATTN_HD * nh * attn_pairs(kmask, pmask, q_)
+            records[(f"attn_fwd_{label}", dtype)] = check_kernel(
+                "prefix_attn_fwd", pa.prefix_attn_fwd,
+                pa.prefix_attn_fwd_plain, args,
+                [ATTN_FWD_TOL[dtype], ATTN_LSE_TOL], False, 2 * pair_ops,
+                dtype, lambda: attn_library_ms(*args))
+            with torch.no_grad():
+                out, lse = pa.prefix_attn_fwd_plain(*args)
+            g = torch.randn(q.shape, generator=gen).to(dev)
+            delta = pa._delta(g, out, nh)
+            bargs = args[:7] + (g.to(dtype), lse, delta, nh)
+            records[(f"attn_dq_{label}", dtype)] = check_kernel(
+                "prefix_attn_bwd_dq", lambda *a: (pa.prefix_attn_bwd_dq(*a),),
+                lambda *a: (pa.prefix_attn_bwd_dq_plain(*a),), bargs,
+                [ATTN_BWD_TOL[dtype]], True, 3 * pair_ops, dtype,
+                lambda: attn_library_ms(*args, g=g))
+            records[(f"attn_dkv_{label}", dtype)] = check_kernel(
+                "prefix_attn_bwd_dkv", pa.prefix_attn_bwd_dkv,
+                pa.prefix_attn_bwd_dkv_plain, bargs,
+                [ATTN_BWD_TOL[dtype]] * (2 if pk is None else 4), True,
+                4 * pair_ops, dtype, lambda: attn_library_ms(*args, g=g))
+            for key in ("fwd", "dq", "dkv"):
+                records[(f"attn_{key}_{label}", dtype)]["shape"] = \
+                    [b, q_, t, p, nh, ATTN_HD]
+    return records
+
+
 # ---------------------------------------------------------------------------
 # phases 4-5: serving over HTTP
 # ---------------------------------------------------------------------------
@@ -515,8 +659,10 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
     if launches[counter] == 0:
         raise RuntimeError(f"{label}: {counter} never launched: {launches}")
 
-    # the served support pass through the kernels against the plain
-    # step loop, on one batch of training-split episodes
+    # the served support pass through the kernels against the plain route,
+    # on one batch of training-split episodes: the LSTM's support state
+    # (absolute), the transformer's prefilled KV cache (relative to its
+    # largest entry)
     from fewshot_torch import sampling
     from fewshot_torch.data import episodes as eps
     ep = eps.sample_episode_for_artists(
@@ -524,24 +670,28 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
         gen.data, torch.as_tensor(np.resize(corpus.splits["train"],
                                             cfg.batch_size)),
         k=cfg.support_size, q=cfg.query_size)
-    with torch.inference_mode():
-        fast = lm.support_state(gen.params, ep.support, ep.support_len, cfg,
-                                eval_mode=True)
-        slow = lm.support_state(gen.params, ep.support, ep.support_len,
-                                dataclasses.replace(cfg, cell="scan"),
-                                eval_mode=True)
-    state_err = max(float((a - b).abs().max())
-                    for (ha, ca), (hb, cb) in zip(fast, slow)
-                    for a, b in ((ha, hb), (ca, cb)))
-    if not state_err <= STATE_TOL:
-        raise RuntimeError(f"{label}: support state off by {state_err}")
+
+    def support(c=cfg):
+        with torch.inference_mode():
+            if c.model == "transformer":
+                cache, _ = sampling.prefix_cache(gen.params, ep.support,
+                                                 ep.support_len, c, 0)
+                return [cache["k"], cache["v"]]
+            return [x for hc in lm.support_state(
+                gen.params, ep.support, ep.support_len, c, eval_mode=True)
+                for x in hc]
+
+    errs = [max_rel(a, b) for a, b in zip(support(), support(plain_route(
+        cfg)))]
+    if cfg.model == "transformer":
+        state_err, tol = max(e[1] for e in errs), KV_TOL
+    else:
+        state_err, tol = max(e[0] for e in errs), STATE_TOL
+    if not state_err <= tol:
+        raise RuntimeError(f"{label}: support pass off by {state_err}")
 
     # where a batch's time goes: the support pass (kernels) against the
     # whole generate() call (support pass + token-by-token decode)
-    def support():
-        with torch.inference_mode():
-            lm.support_state(gen.params, ep.support, ep.support_len, cfg,
-                             eval_mode=True)
 
     def generate():
         sampling.generate(gen.params, ep.support, ep.support_len,
@@ -550,6 +700,9 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
 
     support_ms, generate_ms = host_ms(support), host_ms(generate)
     busy_ms = device_busy_ms(generate)
+    kernel_counters = reset_counts()
+    generate()
+    per_batch = {n: fn.launches for n, fn in kernel_counters.items()}
     gen.close()
     lat = sorted(r[2] for r in results)
     rec = {"phase": label, "support_mode": cfg.support_mode,
@@ -558,7 +711,8 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
            "max_latency_s": lat[-1], "generated_tokens": tokens,
            "wall_s": wall, "tokens_per_s": tokens / wall,
            "warmup_s": gen.warm_s, "launches": launches,
-           "support_state_err_vs_plain": state_err,
+           "launches_per_batch": per_batch,
+           "support_pass_err_vs_plain": state_err,
            "batch_support_ms": support_ms, "batch_generate_ms": generate_ms,
            "batch_device_busy_ms": busy_ms,
            "batch_device_idle_share": (None if busy_ms is None
@@ -573,13 +727,17 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
 
 def counters() -> dict:
     """Every kernel wrapper by name; each counts its launches."""
-    from fewshot_torch.ops import head_ce, lstm_layer, lstm_stack
+    from fewshot_torch.ops import (head_ce, lstm_layer, lstm_stack,
+                                   prefix_attention)
     return {"lstm_layer_fwd": lstm_layer.lstm_layer_fwd,
             "lstm_layer_bwd": lstm_layer.lstm_layer_bwd,
             "lstm_stack_fwd": lstm_stack.lstm_stack_fwd,
             "lstm_stack_bwd": lstm_stack.lstm_stack_bwd,
             "head_ce_fwd": head_ce.head_ce_fwd,
-            "head_ce_bwd": head_ce.head_ce_bwd}
+            "head_ce_bwd": head_ce.head_ce_bwd,
+            "prefix_attn_fwd": prefix_attention.prefix_attn_fwd,
+            "prefix_attn_bwd_dq": prefix_attention.prefix_attn_bwd_dq,
+            "prefix_attn_bwd_dkv": prefix_attention.prefix_attn_bwd_dkv}
 
 
 def reset_counts() -> dict:
@@ -589,10 +747,17 @@ def reset_counts() -> dict:
     return kernel_counters
 
 
+def plain_route(cfg):
+    """The same model without the kernels: the LSTM's step loop and the
+    dense head (cell="scan"), the transformer's einsum attention
+    (prefix_flash and flash off)."""
+    return dataclasses.replace(cfg, cell="scan", prefix_flash=False,
+                               flash=False)
+
+
 def grad_check(cfg, params, ep) -> dict:
-    """One step's grads through the kernels against the plain route
-    (cell="scan") on the same episode and parameters: max |diff| / max
-    |plain| per leaf."""
+    """One step's grads through the kernels against the plain route on the
+    same episode and parameters: max |diff| / max |plain| per leaf."""
     from fewshot_torch.models import lm
 
     def grads(c):
@@ -607,7 +772,7 @@ def grad_check(cfg, params, ep) -> dict:
         return out
 
     fast = grads(cfg)
-    slow = grads(dataclasses.replace(cfg, cell="scan"))
+    slow = grads(plain_route(cfg))
     return {k: max_rel(fast[k], slow[k])[1] for k in slow}
 
 
@@ -632,12 +797,14 @@ def eval_phase(label, cfg, params, data, corpus, dev) -> dict:
             "batches": EVAL_EPISODES // cfg.batch_size}
 
 
-def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False
-                   ) -> dict:
+def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False,
+                   per_step=None, per_eval_batch=None) -> dict:
     """The train step at cfg, dispatched steps_per_call steps per call as
     bench.py does: 2 warm-up calls, then 4 timed calls.  evaluate: also the
     val NLL before and after training (it must fall; the head+CE forward
-    must launch and its backward must not) and the unigram floor."""
+    must launch and no backward kernel may) and the unigram floor.
+    per_step / per_eval_batch: {kernel: launches} the counters must show
+    exactly."""
     from fewshot_torch import training
     from fewshot_torch.data import episodes as eps
 
@@ -676,6 +843,10 @@ def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False
     for n in must_rise:
         if launches[n] == 0:
             raise RuntimeError(f"{label}: {n} never launched: {launches}")
+    for n, want in (per_step or {}).items():
+        if launches[n] != want * steps:
+            raise RuntimeError(f"{label}: {n} launched {launches[n]} times "
+                               f"in {steps} steps, not {want} per step")
 
     # where one step's time goes: host wall (synchronized) and device busy
     def one():
@@ -710,8 +881,11 @@ def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False
         from fewshot_torch.models import unigram
         val_end = eval_phase(label, cfg, state.params, data, corpus, dev)
         fwd = val_end["launches"]["head_ce_fwd"]
-        if not val_end["nll"] < val_init["nll"] or fwd == 0 \
-                or val_end["launches"]["head_ce_bwd"] != 0:
+        bwd = sum(v for n, v in val_end["launches"].items() if "bwd" in n)
+        exact = all(val_end["launches"][n] == want * val_end["batches"]
+                    for n, want in (per_eval_batch or {}).items())
+        if not val_end["nll"] < val_init["nll"] or fwd == 0 or bwd != 0 \
+                or not exact:
             raise RuntimeError(f"{label}: evaluation failed its gates: "
                                f"{val_init} then {val_end}")
         val = torch.as_tensor(np.asarray(corpus.splits["val"]),
@@ -729,6 +903,38 @@ def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False
                         n: v / val_end["batches"]
                         for n, v in val_end["launches"].items()}})
     log(f"{label}: {json.dumps(rec)}")
+    return rec
+
+
+def flash_phase(dev) -> dict:
+    """Row 10: the cfg.flash route (the no-prefix kernel) of
+    ops.attention.causal_attention against its einsum route, at the
+    prefix stream's shape (32 x 480, nh=2, hd=128, bf16), at the real query
+    positions: pad query rows see the real keys before them on both routes
+    (JAX's TPU flash kernel gives them only pad keys, by design)."""
+    from fewshot_torch.ops import attention, prefix_attention as pa
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, kmask, *_ = attn_inputs(gen, dev, torch.bfloat16, 32, 1, 480, 0)
+
+    def heads(x):
+        return x.view(32, 480, 2, ATTN_HD)
+    mask = kmask > 0
+    before = pa.prefix_attn_fwd.launches
+    with torch.no_grad():
+        got = attention.causal_attention(heads(q), heads(k), heads(v), mask,
+                                         use_flash=True)
+        want = attention.causal_attention(heads(q), heads(k), heads(v), mask,
+                                          use_flash=False)
+        torch.cuda.synchronize()
+    launched = pa.prefix_attn_fwd.launches - before
+    err = float((got.float() - want)[mask].abs().max())
+    rec = {"shape": [32, 480, 2, ATTN_HD], "dtype": str(got.dtype),
+           "max_abs_err_real_rows": err, "tolerance": ATTN_FWD_TOL[
+               torch.bfloat16], "kernel_launches": launched}
+    log(f"flash route (row 10): {json.dumps(rec)}")
+    if launched != 1 or not err <= ATTN_FWD_TOL[torch.bfloat16] \
+            or not bool(torch.isfinite(got).all()):
+        raise RuntimeError(f"cfg.flash route failed: {rec}")
     return rec
 
 
@@ -811,6 +1017,33 @@ def main() -> int:
         ("lstm_layer_fwd", "lstm_layer_bwd", "head_ce_fwd", "head_ce_bwd"),
         evaluate=True)
 
+    # the episodic transformer: its attention shapes (query stream: B=32
+    # episodes x Q=5 songs x L-1 rows against a K*L prefix; prefix stream:
+    # 32 x K*L, no prefix), training D on the V=5000 corpus, serving C on
+    # the bench corpus, and the cfg.flash route
+    attn_shapes = {"query": (32, 5, scale.max_len - 1, 5 * scale.max_len),
+                   "prefix": (32, 1, 5 * scale.max_len, 0)}
+    log(f"prefix-attention kernels vs plain twins {attn_shapes}:")
+    records.update(attn_kernel_phase(dev, attn_shapes))
+    # scripts/scale_quality.py:58-70, 205-206, 234 (tfm_cache_full)
+    tfm_d = dataclasses.replace(
+        cache, model="transformer", num_heads=2, cache_resp_floor=0.0)
+    attn_step = {"prefix_attn_fwd": 2 * LAYERS - 1,   # no dead prefix tail
+                 "prefix_attn_bwd_dq": 2 * LAYERS - 1,
+                 "prefix_attn_bwd_dkv": 2 * LAYERS - 1}
+    train_d = training_phase(
+        "training_D", tfm_d, scale, dev,
+        ("prefix_attn_fwd", "prefix_attn_bwd_dq", "prefix_attn_bwd_dkv",
+         "head_ce_fwd", "head_ce_bwd"), evaluate=True,
+        per_step={**attn_step, "head_ce_fwd": 1, "head_ce_bwd": 1},
+        per_eval_batch={"prefix_attn_fwd": 2 * LAYERS - 1, "head_ce_fwd": 1})
+    # configs/model/transformer.yaml + configs/task/episodic.yaml
+    serve_c = serving_phase(
+        "serving_C", dataclasses.replace(shipped, model="transformer",
+                                         num_layers=4, num_heads=2),
+        corpus, dev, "prefix_attn_fwd")
+    flash = flash_phase(dev)
+
     meta = {  # key, csrc source, TPU kernel, the slice's path, serving path
         "lstm_layer_fwd": ("layer", "lstm_fwd.cu",
                            "fewshot/ops/lstm_pallas.py:122", train_a,
@@ -825,6 +1058,17 @@ def main() -> int:
                         "fewshot/ops/head_ce.py:142", train_c, None),
         "head_ce_bwd": ("head_bwd", "head_ce.cu",
                         "fewshot/ops/head_ce.py:153", train_c, None),
+        # kernel 9 (token-major resident plan) is what the TPU runs at these
+        # shapes; the same kernels replace 7, 8 and (no prefix) 10
+        "prefix_attn_fwd": ("attn_fwd_query", "prefix_attn.cu",
+                            "fewshot/ops/prefix_attention.py:727", train_d,
+                            serve_c),
+        "prefix_attn_bwd_dq": ("attn_dq_query", "prefix_attn.cu",
+                               "fewshot/ops/prefix_attention.py:757",
+                               train_d, None),
+        "prefix_attn_bwd_dkv": ("attn_dkv_query", "prefix_attn.cu",
+                                "fewshot/ops/prefix_attention.py:757",
+                                train_d, None),
     }
     kernels = []
     for name, (key, src, replaces, phase, serve) in meta.items():
@@ -845,12 +1089,24 @@ def main() -> int:
                                        "library_ms")}}
         if serve is not None:
             rec["launches_serving"] = serve["launches"][name]
+            rec["launches_per_serving_batch"] = \
+                serve["launches_per_batch"][name]
+        if "gates_max_abs_err" in r:
             rec["gates_max_abs_err"] = [r["gates_max_abs_err"],
                                         f["gates_max_abs_err"]]
         if "launches_per_eval_batch" in phase:
             rec["launches_per_eval_batch"] = \
                 phase["launches_per_eval_batch"][name]
+        if key.endswith("_query"):       # the prefix stream's shape
+            rec["prefix_stream"] = {
+                dt: {k: records[(key.replace("_query", "_prefix"),
+                                 d)][k]
+                     for k in ("shape", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")}
+                for dt, d in (("bfloat16", torch.bfloat16),
+                              ("float32", torch.float32))}
         kernels.append(rec)
+    kernels[-3]["flash_route"] = flash
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,23 +1,25 @@
-"""Language-model head, losses, LSTM episodic conditioning and the
-neural-cache head.
+"""Language-model head, losses, episodic conditioning (LSTM and
+transformer) and the neural-cache head.
 
-Port of the LSTM part of ``fewshot/models/lm.py``: ``init_lm`` with the same
-parameter tree (cache parameters included), ``embed``, the embedding fold
-``_lstm_embed``, ``head_logits`` with its [H, V] pre-contract gate, the fused
-head ``fused_head_eligible`` / ``head_lse_target`` (kernels 5 and 6,
-``ops/head_ce.py``), ``lm_logits``, ``token_nll`` (both branches),
+Port of ``fewshot/models/lm.py`` but the finetune variant: ``init_lm`` with
+the same parameter tree (cache parameters included), ``embed``, the
+embedding fold ``_lstm_embed``, ``head_logits`` with its [H, V] pre-contract
+gate, the fused head ``fused_head_eligible`` / ``head_lse_target`` (kernels
+5 and 6, ``ops/head_ce.py``), ``lm_logits``, ``token_nll`` (both branches),
 ``sequence_nll``, ``shift_targets``, ``lm_nll_stats``, ``support_state``,
 the cache head (``support_counts``, ``cache_posterior_parts``,
 ``dynamic_cache_target_logp``, ``support_log_cache``, ``cache_token_nll``,
 ``lm_target_logp``, ``cache_mix_stats``) and ``episodic_nll_stats`` for
 ``state``, ``mean_state`` and ``none``, with and without the cache and the
-fused head.  Every matmul that the JAX code runs at the compute dtype with
-fp32 accumulation goes through ``models.lstm.matmul_f32``, which reproduces
-it, gradients included (the grad of a rounded operand is rounded to the
-compute dtype, as JAX's dot transpose does); ``stop_gradient`` is
-``detach``.  The transformer, the finetune variant and dropout in training
-are later slices of the port and raise ``NotImplementedError``; so does
-sampling with the cache head (``sampling.check_servable``).
+fused head, for both backbones (the transformer's support prefix runs
+through ``models/transformer.py``'s prefix forward).  Every matmul that the
+JAX code runs at the compute dtype with fp32 accumulation goes through
+``models.lstm.matmul_f32``, which reproduces it, gradients included (the
+grad of a rounded operand is rounded to the compute dtype, as JAX's dot
+transpose does); ``stop_gradient`` is ``detach``.  The finetune variant,
+dropout in training and the transformer's ``remat`` are later slices of the
+port and raise ``NotImplementedError``; so does sampling with the cache head
+(``sampling.check_servable``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from torch import nn
 
 from fewshot_torch.device import resolve_device
 from fewshot_torch.models import lstm as lstm_mod
+from fewshot_torch.models import transformer as tfm_mod
 from fewshot_torch.models.lstm import matmul_f32
 from fewshot_torch.ops import head_ce
 
@@ -52,24 +55,28 @@ class ParamGroup(nn.Module):
             self.register_parameter(name, nn.Parameter(value))
 
 
-class LSTMLM(nn.Module):
-    """The JAX parameter tree of an LSTM LM as a module.
+class LM(nn.Module):
+    """The JAX parameter tree of an LM as a module.
 
-    embed [V, E]; lstm[l].{wx [in, 4H], wh [H, 4H], b [4H]}; out_proj
-    [H, E] (tied head with H != E) or out_w [H, V] (untied head); out_b
-    [V]; with the cache head, cache_gate.{w [H], b []}, cache_prior.{u [V],
-    log_s []} (global backoff) and cache_calib.{t [32], a [32]} (calib;
-    ``a`` with calib_freq).  Absent entries are None."""
+    embed [V, E]; the backbone: lstm[l].{wx [in, 4H], wh [H, 4H], b [4H]}
+    or transformer.{layers[l].{ln1, wqkv, wo, ln2, w1, w2}, ln_f}
+    (``models/transformer.py``); out_proj [D, E] (tied head with D != E) or
+    out_w [D, V] (untied head), D = H or E; out_b [V]; with the cache head,
+    cache_gate.{w [D], b []}, cache_prior.{u [V], log_s []} (global
+    backoff) and cache_calib.{t [32], a [32]} (calib; ``a`` with
+    calib_freq).  Absent entries are None."""
 
-    def __init__(self, embed: torch.Tensor, lstm: nn.ModuleList,
+    def __init__(self, embed: torch.Tensor, lstm: nn.ModuleList | None,
                  out_b: torch.Tensor, out_proj: torch.Tensor | None = None,
                  out_w: torch.Tensor | None = None,
                  cache_gate: dict | None = None,
                  cache_prior: dict | None = None,
-                 cache_calib: dict | None = None):
+                 cache_calib: dict | None = None,
+                 transformer: tfm_mod.Transformer | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed)
         self.lstm = lstm
+        self.transformer = transformer
         self.out_b = nn.Parameter(out_b)
         for name, value in (("out_proj", out_proj), ("out_w", out_w)):
             self.register_parameter(
@@ -86,15 +93,16 @@ def compute_dtype(cfg) -> torch.dtype:
 
 def check_supported(cfg) -> None:
     """Raise for the configurations that later slices of the port add."""
-    if cfg.model != "lstm":
+    if cfg.model == "transformer" and cfg.remat:
         raise NotImplementedError(
-            "model='transformer' is not ported yet (a later slice)")
+            "remat=True (activation checkpointing) is not ported yet (a "
+            "later slice)")
     if cfg.support_mode == "finetune":
         raise NotImplementedError(
             "support_mode='finetune' is not ported yet (a later slice)")
 
 
-def _vocab(params: LSTMLM, cfg) -> int:
+def _vocab(params: LM, cfg) -> int:
     return (params.embed.shape[0] if cfg.tie_embeddings
             else params.out_w.shape[1])
 
@@ -105,7 +113,7 @@ def _glorot(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def init_lm(cfg, vocab_size: int, generator: torch.Generator,
-            device: torch.device | str | None = None) -> LSTMLM:
+            device: torch.device | str | None = None) -> LM:
     """Random parameters with the JAX package's distributions and tree.
 
     generator: a CPU generator, so a seed gives the same weights on any
@@ -113,9 +121,15 @@ def init_lm(cfg, vocab_size: int, generator: torch.Generator,
     cache parameters are deterministic (the JAX package's init values)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    e, h = cfg.embed_dim, cfg.hidden_dim
+    e = cfg.embed_dim
     emb = torch.randn((vocab_size, e), generator=generator) * 0.02
-    lstm = lstm_mod.init_lstm_params(e, h, cfg.num_layers, generator)
+    lstm = tfm = None
+    if cfg.model == "lstm":
+        h = cfg.hidden_dim
+        lstm = lstm_mod.init_lstm_params(e, h, cfg.num_layers, generator)
+    else:
+        h = e               # the head's input width
+        tfm = tfm_mod.init_transformer_params(cfg, generator)
     out_proj = out_w = None
     if cfg.tie_embeddings:
         if h != e:
@@ -138,11 +152,11 @@ def init_lm(cfg, vocab_size: int, generator: torch.Generator,
                 1, CACHE_CALIB_MAX + 1, dtype=torch.float32))}
             if cfg.cache_calib_freq:
                 cache["cache_calib"]["a"] = torch.zeros(CACHE_CALIB_MAX)
-    return LSTMLM(emb, lstm, torch.zeros(vocab_size), out_proj, out_w,
-                  **cache).to(dev)
+    return LM(emb, lstm, torch.zeros(vocab_size), out_proj, out_w,
+              **cache, transformer=tfm).to(dev)
 
 
-def head_logits(params: LSTMLM, hidden: torch.Tensor, cfg) -> torch.Tensor:
+def head_logits(params: LM, hidden: torch.Tensor, cfg) -> torch.Tensor:
     """hidden [..., H] -> logits [..., V] in fp32."""
     dt = compute_dtype(cfg)
     if cfg.tie_embeddings:
@@ -163,7 +177,7 @@ def head_logits(params: LSTMLM, hidden: torch.Tensor, cfg) -> torch.Tensor:
     return logits + params.out_b
 
 
-def fused_head_eligible(params: LSTMLM, cfg, vocab_size: int) -> bool:
+def fused_head_eligible(params: LM, cfg, vocab_size: int) -> bool:
     """Score through the fused head+CE kernels (``ops/head_ce.py``)?  As in
     the JAX package: cell='pallas', V above the one-hot threshold, and the
     kernels' plan holding for the head's inner dimension."""
@@ -174,7 +188,7 @@ def fused_head_eligible(params: LSTMLM, cfg, vocab_size: int) -> bool:
                                             compute_dtype(cfg))
 
 
-def head_lse_target(params: LSTMLM, hidden: torch.Tensor,
+def head_lse_target(params: LM, hidden: torch.Tensor,
                     targets: torch.Tensor, cfg):
     """Fused per-position (logsumexp, target logit) of the head logits,
     without the [.., V] logits: hidden [.., H], targets [..] -> two [..]
@@ -193,12 +207,12 @@ def head_lse_target(params: LSTMLM, hidden: torch.Tensor,
     return lse.reshape(targets.shape), tl.reshape(targets.shape)
 
 
-def embed(params: LSTMLM, tokens: torch.Tensor) -> torch.Tensor:
+def embed(params: LM, tokens: torch.Tensor) -> torch.Tensor:
     """Embedding rows [.., E] (the JAX one-hot matmul gives the same rows)."""
     return params.embed[tokens]
 
 
-def _lstm_embed(params: LSTMLM, tokens: torch.Tensor, cfg):
+def _lstm_embed(params: LM, tokens: torch.Tensor, cfg):
     """(x, zx0) for the LSTM backbone, folding the embedding into the
     layer-0 input projection when eligible (evaluation: no dropout).
 
@@ -228,11 +242,18 @@ def shift_targets(tokens: torch.Tensor, lengths: torch.Tensor):
     return tokens[..., :-1], tokens[..., 1:], mask
 
 
-def lm_logits(params: LSTMLM, tokens: torch.Tensor, cfg,
+def _check_dropout(cfg, eval_mode: bool) -> None:
+    if not eval_mode and cfg.dropout > 0:
+        raise NotImplementedError(
+            "dropout > 0 in training is not ported yet (a later slice)")
+
+
+def lm_logits(params: LM, tokens: torch.Tensor, cfg,
               mask: torch.Tensor | None = None, state=None,
               eval_mode: bool = False, with_hidden: bool = False,
               no_head: bool = False):
-    """tokens [B, T] -> (logits [B, T, V] fp32, final per-layer state).
+    """tokens [B, T] -> (logits [B, T, V] fp32, final per-layer state; None
+    for the transformer, which decodes with its KV cache).
 
     with_hidden=True also returns the pre-head hidden states (the cache
     gate's input); no_head=True skips the head and returns (None, state,
@@ -240,14 +261,17 @@ def lm_logits(params: LSTMLM, tokens: torch.Tensor, cfg,
     differentiate (admits the forward-only fused stack, as in the JAX
     package).  No dropout: train mode with cfg.dropout > 0 raises."""
     check_supported(cfg)
-    if not eval_mode and cfg.dropout > 0:
-        raise NotImplementedError(
-            "dropout > 0 in training is not ported yet (a later slice)")
-    x, zx0 = _lstm_embed(params, tokens, cfg)
-    hidden, state = lstm_mod.lstm_forward(
-        params.lstm, x, mask=mask, state=state,
-        compute_dtype=compute_dtype(cfg), cell=cfg.cell, eval_mode=eval_mode,
-        zx0=zx0)
+    _check_dropout(cfg, eval_mode)
+    if cfg.model == "lstm":
+        x, zx0 = _lstm_embed(params, tokens, cfg)
+        hidden, state = lstm_mod.lstm_forward(
+            params.lstm, x, mask=mask, state=state,
+            compute_dtype=compute_dtype(cfg), cell=cfg.cell,
+            eval_mode=eval_mode, zx0=zx0)
+    else:
+        hidden = tfm_mod.transformer_forward(params.transformer,
+                                             embed(params, tokens), mask, cfg)
+        state = None
     if no_head:
         return None, state, hidden
     if with_hidden:
@@ -288,7 +312,7 @@ def support_counts(support: torch.Tensor, support_len: torch.Tensor,
                                mask.reshape(b, -1).float())
 
 
-def cache_posterior_parts(params: LSTMLM, support: torch.Tensor,
+def cache_posterior_parts(params: LM, support: torch.Tensor,
                           support_len: torch.Tensor, vocab_size: int):
     """(phi [B, V], total [B, 1], s [], p_global [V]); the cache posterior
     is (phi + s p_global) / (total + s).
@@ -349,7 +373,7 @@ def dynamic_cache_target_logp(phi, total, s, p_global, targets, mask):
             - torch.log(total + plen + s))
 
 
-def support_log_cache(params: LSTMLM, support: torch.Tensor,
+def support_log_cache(params: LM, support: torch.Tensor,
                       support_len: torch.Tensor,
                       vocab_size: int) -> torch.Tensor:
     """[B, V] log-probs of the support-count posterior (the cache)."""
@@ -370,7 +394,7 @@ def lm_target_logp(logits: torch.Tensor, targets: torch.Tensor
             - torch.logsumexp(logits, dim=-1))
 
 
-def cache_token_nll(params: LSTMLM, logits, hidden, log_cache, targets, mask,
+def cache_token_nll(params: LM, logits, hidden, log_cache, targets, mask,
                     lm_aux: float = 0.0, resp_floor: float = 0.0):
     """(sum CE, count) under the cache mixture from the target entries of
     both branches, without the [.., V] mixture.  logits/hidden [rows, T, *];
@@ -388,7 +412,7 @@ def cache_token_nll(params: LSTMLM, logits, hidden, log_cache, targets, mask,
                            resp_floor)
 
 
-def cache_mix_stats(params: LSTMLM, hidden, lm_t, cache_t, mask,
+def cache_mix_stats(params: LM, hidden, lm_t, cache_t, mask,
                     lm_aux: float = 0.0, resp_floor: float = 0.0):
     """(sum CE, count) of the gated mixture (1-g) p_lm + g p_cache, g =
     sigmoid(hidden . w + b), from the two branches' target log-probs.
@@ -418,7 +442,7 @@ def sequence_nll(logits: torch.Tensor, targets: torch.Tensor,
     return total / count.clamp_min(1.0)
 
 
-def lm_nll_stats(params: LSTMLM, tokens: torch.Tensor, lengths: torch.Tensor,
+def lm_nll_stats(params: LM, tokens: torch.Tensor, lengths: torch.Tensor,
                  cfg, eval_mode: bool = False):
     """(sum CE, token count) on a [B, T] batch of songs."""
     inputs, targets, mask = shift_targets(tokens, lengths)
@@ -427,7 +451,7 @@ def lm_nll_stats(params: LSTMLM, tokens: torch.Tensor, lengths: torch.Tensor,
     return token_nll(logits, targets, mask)
 
 
-def support_state(params: LSTMLM, support: torch.Tensor,
+def support_state(params: LM, support: torch.Tensor,
                   support_len: torch.Tensor, cfg, eval_mode: bool = False):
     """The priming per-layer (h, c) derived from the support set.
 
@@ -457,19 +481,21 @@ def support_state(params: LSTMLM, support: torch.Tensor,
     return state
 
 
-def episodic_nll_stats(params: LSTMLM, ep, cfg, eval_mode: bool = False):
+def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False):
     """(sum CE over query tokens, query token count) for a meta-batch.
 
-    The LSTM branch of the JAX function: the support state (support_mode
-    state or mean_state; none for an unconditioned model) primes each
-    episode's Q query songs, which run as one [B*Q, L-1] batch.  The head
-    is the fused head+CE (``fused_head_eligible``) or the dense logits; the
-    loss is plain CE or, with support_cache, the gated cache mixture
+    LSTM: the support state (support_mode state or mean_state; none for an
+    unconditioned model) primes each episode's Q query songs, which run as
+    one [B*Q, L-1] batch.  Transformer: under state and mean_state alike the
+    K support songs form a prefix that the query songs attend to
+    (``transformer_prefix_forward``); none runs the plain causal model.  The
+    head is the fused head+CE (``fused_head_eligible``) or the dense logits;
+    the loss is plain CE or, with support_cache, the gated cache mixture
     (static or dynamic cache).  eval_mode forces cache_lm_aux and
     cache_resp_floor to 0, so every reported NLL is the pure mixture.  In
-    mean_state mode the support pass's top-layer outputs are unused, so
-    its gradient arrives only through the final state (mean, then
-    repeat)."""
+    mean_state mode the support pass's top-layer outputs are unused, so its
+    gradient arrives only through the final state (mean, then repeat).
+    """
     check_supported(cfg)
     lm_aux = 0.0 if eval_mode else cfg.cache_lm_aux
     resp_floor = 0.0 if eval_mode else cfg.cache_resp_floor
@@ -480,22 +506,37 @@ def episodic_nll_stats(params: LSTMLM, ep, cfg, eval_mode: bool = False):
     flat_mask = mask.reshape(b * q_, l_ - 1)
     v_total = _vocab(params, cfg)
     fused = fused_head_eligible(params, cfg, v_total)
-    state = None
-    if cfg.support_mode in ("state", "mean_state"):
-        state = support_state(params, ep.support, ep.support_len, cfg,
-                              eval_mode=eval_mode)
-        # each episode's state over its Q query songs
-        state = [(h.repeat_interleave(q_, dim=0),
-                  c.repeat_interleave(q_, dim=0)) for h, c in state]
-    hidden = None
-    if cfg.support_cache or fused:
-        logits, _, hidden = lm_logits(params, flat_inputs, cfg,
-                                      mask=flat_mask, state=state,
-                                      eval_mode=eval_mode, with_hidden=True,
-                                      no_head=fused)
+    conditioned = cfg.support_mode in ("state", "mean_state")
+    hidden = logits = None
+    if cfg.model == "transformer" and conditioned:
+        _check_dropout(cfg, eval_mode)
+        # the K support songs, concatenated, form each episode's prefix
+        _, k_, sl = ep.support.shape
+        prefix = ep.support.reshape(b, k_ * sl)
+        prefix_mask = (torch.arange(sl, device=prefix.device)
+                       < ep.support_len[..., None]).reshape(b, k_ * sl)
+        q_emb = embed(params, flat_inputs).reshape(b, q_, l_ - 1, -1)
+        hidden = tfm_mod.transformer_prefix_forward(
+            params.transformer, embed(params, prefix), prefix_mask, q_emb,
+            mask, cfg).reshape(b * q_, l_ - 1, -1)
+        if not fused:
+            logits = head_logits(params, hidden, cfg)
     else:
-        logits, _ = lm_logits(params, flat_inputs, cfg, mask=flat_mask,
-                              state=state, eval_mode=eval_mode)
+        state = None
+        if cfg.model == "lstm" and conditioned:
+            state = support_state(params, ep.support, ep.support_len, cfg,
+                                  eval_mode=eval_mode)
+            # each episode's state over its Q query songs
+            state = [(h.repeat_interleave(q_, dim=0),
+                      c.repeat_interleave(q_, dim=0)) for h, c in state]
+        if cfg.support_cache or fused:
+            logits, _, hidden = lm_logits(params, flat_inputs, cfg,
+                                          mask=flat_mask, state=state,
+                                          eval_mode=eval_mode,
+                                          with_hidden=True, no_head=fused)
+        else:
+            logits, _ = lm_logits(params, flat_inputs, cfg, mask=flat_mask,
+                                  state=state, eval_mode=eval_mode)
 
     def lm_branch():
         if fused:

@@ -44,6 +44,11 @@ SIGNATURES = {
         "head_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],
         "head_ce_bwd": [_P] * 10 + [_I] * 5 + [_P],
     },
+    "prefix_attn": {
+        "prefix_attn_fwd": [_P] * 9 + [_I] * 7 + [_P],
+        "prefix_attn_bwd_dq": [_P] * 11 + [_I] * 7 + [_P],
+        "prefix_attn_bwd_dkv": [_P] * 14 + [_I] * 7 + [_P],
+    },
 }
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype arg

@@ -1,8 +1,10 @@
 """Few-shot generation: support-primed top-k / nucleus sampling.
 
-Port of the LSTM half of ``fewshot/sampling.py`` (``filtered_sample``, the
-decode loop, ``sample_lstm`` and ``generate``).  Semantics are the JAX
-package's:
+Port of ``fewshot/sampling.py`` without the cache head, the grammar masks
+and the finetune variant: ``filtered_sample``, the decode loop,
+``sample_lstm``, ``sample_transformer`` (the support prefix prefilled into
+a KV cache through the prefix-attention kernels, then one cached step per
+token) and ``generate``.  Semantics are the JAX package's:
 
   * temperature scales the logits BEFORE top-k truncation;
   * top_k == 0 means full ancestral sampling; 0 < top_p < 1 also applies
@@ -24,6 +26,7 @@ import torch
 from fewshot_torch.data.vocab import BOS, EOS, PAD
 from fewshot_torch.models import lm as lm_mod
 from fewshot_torch.models import lstm as lstm_mod
+from fewshot_torch.models import transformer as tfm_mod
 
 # Early exit tests "every row has emitted EOS" once per this many tokens
 # (each test waits for the device); rows that finished emit PAD meanwhile,
@@ -95,12 +98,10 @@ def filtered_sample(noise: torch.Tensor, logits: torch.Tensor, temperature,
                         + noise, dim=-1)
 
 
-def sample_lstm(params, support: torch.Tensor, support_len: torch.Tensor,
-                generators, cfg, n_tokens: int, temperature=None,
-                early_exit: bool = True) -> torch.Tensor:
-    """LSTM few-shot continuation.  support [B, K, L] -> tokens [B, n]."""
-    b = support.shape[0]
-    dev = support.device
+def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
+            temperature, early_exit: bool) -> torch.Tensor:
+    """The decode loop from BOS: step(tok [B], i) -> top hidden [B, D] of
+    position i.  Returns tokens [B, n_tokens], PAD after a row's EOS."""
     if len(generators) != b:
         raise ValueError(f"need one generator per row ({b}), got "
                          f"{len(generators)}")
@@ -108,12 +109,6 @@ def sample_lstm(params, support: torch.Tensor, support_len: torch.Tensor,
             if temperature is None
             else torch.as_tensor(temperature, dtype=torch.float32,
                                  device=dev).expand(b))
-    dt = lm_mod.compute_dtype(cfg)
-    if cfg.support_mode in ("state", "mean_state"):
-        state = lm_mod.support_state(params, support, support_len, cfg,
-                                     eval_mode=True)
-    else:
-        state = lstm_mod.zero_state(b, cfg.hidden_dim, cfg.num_layers, dev)
     noise = gumbel_noise(generators, n_tokens, params.out_b.shape[0], dev)
     tok = torch.full((b,), BOS, dtype=torch.int64, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
@@ -122,15 +117,74 @@ def sample_lstm(params, support: torch.Tensor, support_len: torch.Tensor,
         if early_exit and i and i % EXIT_CHECK_EVERY == 0 \
                 and bool(done.all()):
             break
-        x = lm_mod.embed(params, tok)
-        h, state = lstm_mod.lstm_step(params.lstm, x, state, dt)
-        logits = lm_mod.head_logits(params, h, cfg)
+        logits = lm_mod.head_logits(params, step(tok, i), cfg)
         nxt = filtered_sample(noise[i], logits, temp, cfg.top_k, cfg.top_p)
         nxt = nxt.masked_fill(done, PAD)
         done = done | (nxt == EOS)
         toks[:, i] = nxt
         tok = nxt
     return toks
+
+
+def sample_lstm(params, support: torch.Tensor, support_len: torch.Tensor,
+                generators, cfg, n_tokens: int, temperature=None,
+                early_exit: bool = True) -> torch.Tensor:
+    """LSTM few-shot continuation.  support [B, K, L] -> tokens [B, n]."""
+    b = support.shape[0]
+    dev = support.device
+    dt = lm_mod.compute_dtype(cfg)
+    if cfg.support_mode in ("state", "mean_state"):
+        state = lm_mod.support_state(params, support, support_len, cfg,
+                                     eval_mode=True)
+    else:
+        state = lstm_mod.zero_state(b, cfg.hidden_dim, cfg.num_layers, dev)
+
+    def step(tok, _):
+        nonlocal state
+        h, state = lstm_mod.lstm_step(params.lstm, lm_mod.embed(params, tok),
+                                      state, dt)
+        return h
+    return _decode(params, step, b, dev, generators, cfg, n_tokens,
+                   temperature, early_exit)
+
+
+def sample_transformer(params, support: torch.Tensor,
+                       support_len: torch.Tensor, generators, cfg,
+                       n_tokens: int, temperature=None,
+                       early_exit: bool = True) -> torch.Tensor:
+    """Transformer few-shot continuation by prefix KV-cache decode: the K
+    support songs (support_mode state or mean_state) prefill the cache in
+    one pass, then position K L + i decodes token i.  support [B, K, L] ->
+    tokens [B, n]."""
+    cache, prefix_len = prefix_cache(params, support, support_len, cfg,
+                                     n_tokens + 1)
+
+    def step(tok, i):
+        h, _ = tfm_mod.transformer_step(params.transformer,
+                                        lm_mod.embed(params, tok), cache,
+                                        prefix_len + i, cfg)
+        return h
+    return _decode(params, step, support.shape[0], support.device,
+                   generators, cfg, n_tokens, temperature, early_exit)
+
+
+def prefix_cache(params, support: torch.Tensor, support_len: torch.Tensor,
+                 cfg, extra: int) -> tuple[dict, int]:
+    """(KV cache, prefix length): a cache of prefix length + `extra`
+    positions whose first K L hold the support prefix (prefilled in one
+    pass) under support_mode state or mean_state; no prefix under none."""
+    b, k_, l_ = support.shape
+    dev = support.device
+    use_prefix = cfg.support_mode in ("state", "mean_state")
+    prefix_len = k_ * l_ if use_prefix else 0
+    cache = tfm_mod.init_kv_cache(cfg, b, prefix_len + extra, dev)
+    if use_prefix:
+        flat = support.reshape(b, prefix_len)
+        mask = (torch.arange(l_, device=dev)
+                < support_len[..., None]).reshape(b, prefix_len)
+        tfm_mod.prefill(params.transformer, lm_mod.embed(params, flat), mask,
+                        cache, cfg)
+    return cache, prefix_len
 
 
 def generate(params, support: torch.Tensor, support_len: torch.Tensor,
@@ -144,6 +198,7 @@ def generate(params, support: torch.Tensor, support_len: torch.Tensor,
     row has emitted EOS; the output is the same either way."""
     check_servable(cfg)
     n = n_tokens if n_tokens is not None else cfg.sample_tokens
+    fn = sample_lstm if cfg.model == "lstm" else sample_transformer
     with torch.inference_mode():
-        return sample_lstm(params, support, support_len, generators, cfg, n,
-                           temperature, early_exit)
+        return fn(params, support, support_len, generators, cfg, n,
+                  temperature, early_exit)

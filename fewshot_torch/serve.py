@@ -1,7 +1,8 @@
 """Serving tier: few-shot continuations over HTTP from one device.
 
-Port of ``fewshot/serve.py`` for LSTM lyrics models.  One process loads the
-corpus and parameters once, warms the sampler, and serves:
+Port of ``fewshot/serve.py`` for lyrics models (LSTM or transformer).  One
+process loads the corpus and parameters once, warms the sampler, and
+serves:
 
     GET  /healthz                    -> {"status": "ok", ...}
     POST /generate                   -> {"continuations": [...]}

@@ -2,8 +2,9 @@
 
 Port of ``fewshot/training.py`` on one device (``mesh=None``).  A step samples
 its episodes on the device (``data.episodes.sample_episode``), runs the
-forward and backward (the LSTM kernels' autograd Functions under
-``cell="pallas"``), divides the gradients (CE sums) by the token count, and
+forward and backward (the kernels' autograd Functions: the LSTM's and the
+head+CE's under ``cell="pallas"``, the transformer's attention under
+``prefix_flash``), divides the gradients (CE sums) by the token count, and
 applies the optax chain of the JAX package by hand:
 
 * ``clip_by_global_norm``: scale only when the norm reaches the maximum,
@@ -45,7 +46,7 @@ class OptState(NamedTuple):
 
 
 class TrainState(NamedTuple):
-    params: lm_mod.LSTMLM
+    params: lm_mod.LM
     opt_state: OptState
     step: int
     gen: torch.Generator    # on the parameters' device; feeds the sampler

@@ -417,7 +417,7 @@ def test_cache_token_nll_matches_jax(v, aux, floor):
         lambda *a: jfn(*a), argnums=(0, 1, 2, 3), has_aux=True)(
         jp, jnp.asarray(logits), jnp.asarray(hidden), jnp.asarray(log_cache))
     gate_w = torch.tensor(np.asarray(jp["cache_gate"]["w"]))
-    params = lm.LSTMLM(torch.zeros(v, E), torch.nn.ModuleList(),
+    params = lm.LM(torch.zeros(v, E), torch.nn.ModuleList(),
                        torch.zeros(v),
                        cache_gate={"w": gate_w, "b": torch.tensor(-0.3)})
     ins = [torch.tensor(a, requires_grad=True)

@@ -233,12 +233,12 @@ def test_shift_targets_matches_jax():
     np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
 
 
-@pytest.mark.parametrize("change", [dict(model="transformer"),
+@pytest.mark.parametrize("change", [dict(model="transformer", remat=True),
                                     dict(support_cache=True),
                                     dict(support_mode="finetune")])
 def test_later_slices_raise(change):
-    """The transformer and finetune raise at init.  The cache head trains
-    and evaluates (init_lm builds its parameters), but sampling and
+    """The transformer's remat and finetune raise at init.  The cache head
+    trains and evaluates (init_lm builds its parameters), but sampling and
     serving with it are a later slice and raise."""
     cfg = dataclasses.replace(Config(**KW), **change)
     if not cfg.support_cache:
