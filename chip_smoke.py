@@ -7,14 +7,18 @@ Run from the repository root:  python3 chip_smoke.py
 Phases, each of which exits non-zero on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from fewshot_torch/ops/csrc (one nvcc per
-     source, all started together; sm_90a);
+     source, all started together; sm_90a), and count the tensor-core
+     (HMMA) instructions in the SASS of the two bf16 tensor-core kernels
+     (the head+CE backward, the prefix-attention forward); a kernel with
+     none fails the run;
   3. each recurrence kernel against its plain PyTorch twin at full width
      (E=256, H=512, 2 layers; bf16 and fp32; ragged masks): the two
      forward kernels (and their train-mode gate activations) and the two
      backward kernels, with each kernel's time (CUDA events), its bound,
-     the twin's time and torch.nn.LSTM (cuDNN; forward, or forward and
-     backward for the backward kernels) timed at the same shape as a
-     yardstick only;
+     the twin's time and torch.nn.LSTM (cuDNN) timed at the same shape as
+     a yardstick only: its forward for the forward kernels, its backward
+     alone (the forward outside the timed window; forward and backward
+     as a second figure) for the backward kernels;
   4. serving phase A, the bench config (support_mode=mean_state, batch 32,
      the per-layer kernel): an HTTP server answers concurrent /generate
      requests; the per-layer kernel's launch count must rise;
@@ -32,9 +36,10 @@ Phases, each of which exits non-zero on failure:
      and backward kernels against their twins at training C's head shape
      (R = B*Q*(L-1) rows, D=256, V=5000, neither a multiple of the 64-wide
      tiles; targets at 0 and V-1), with torch.logsumexp of the dense
-     logits (and its autograd backward) as the yardstick; after 4-7, so
-     that those phases run in a process like the one before the V=5000
-     path existed;
+     logits (its autograd backward alone for the backward) as the
+     yardstick, and the backward's two launches on the same inputs
+     bit-identical; after 4-7, so that those phases run in a process like
+     the one before the V=5000 path existed;
   9. training phase C, the V=5000 neural-cache stack
      (scripts/scale_quality.py's plain_cache_full_floor leg: mean_state,
      B=32, global backoff, calibration, dynamic cache, responsibility floor
@@ -49,8 +54,8 @@ Phases, each of which exits non-zero on failure:
      stream: 32 episodes x 5 songs x 95 rows against a 480-key prefix; the
      prefix stream: 32 x 480 rows, no prefix; nh=2, hd=128; bf16 and fp32;
      ragged masks), with F.scaled_dot_product_attention over [prefix ++
-     self] under a boolean mask (and its autograd backward) as the
-     yardstick;
+     self] under a boolean mask (its autograd backward alone for dq and
+     dk/dv) as the yardstick;
  11. training phase D, the episodic transformer with the full cache stack
      (scripts/scale_quality.py's tfm_cache_full leg: 2 layers, E=256,
      nh=2, mean_state, B=32) on the V=5000 corpus, as C: the attention
@@ -158,12 +163,22 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean device time of fn() over `reps` calls, by CUDA events."""
+    """Mean device time of fn() over `reps` calls, by CUDA events.  The
+    calls are enqueued while the card sleeps (torch.cuda._sleep, cycles at
+    up to 2 GHz covering 1.5x the calls' measured enqueue time, at most
+    0.25 s), so the events time the device's work back to back and not the
+    host's dispatch rate, which a call of a few tens of microseconds would
+    otherwise show."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(1.5 * reps * enqueue_s + 1e-3, 0.25) * 2e9))
     start.record()
     for _ in range(reps):
         fn()
@@ -226,7 +241,9 @@ def ragged_mask(gen, steps: int, rows: int, songs: int) -> torch.Tensor:
 def cudnn_lstm_ms(wh, b, steps, rows, in_dim, layers, dtype,
                   backward=False):
     """torch.nn.LSTM (cuDNN) at the same shape: the yardstick only; with
-    backward, its forward and backward (input and weight grads) together.
+    backward, (its backward alone, its forward and backward together), the
+    backward giving the input and weight grads of a forward run once
+    outside the timed window.
 
     Gates permuted from (i, j, f, o) to PyTorch's (i, f, g, o), forget bias
     folded into bias_ih.  It also projects its input (the kernels take
@@ -247,19 +264,29 @@ def cudnn_lstm_ms(wh, b, steps, rows, in_dim, layers, dtype,
     lstm.flatten_parameters()
     x = torch.randn(steps, rows, in_dim, device=dev, dtype=dtype,
                     requires_grad=backward)
-
-    def fwd_bwd():
-        out, _ = lstm(x)
-        out.backward(torch.ones_like(out))
-
     try:
-        if backward:
-            return cuda_ms(fwd_bwd, KERNEL_REPS)
-        with torch.no_grad():
-            return cuda_ms(lambda: lstm(x), KERNEL_REPS)
+        if not backward:
+            with torch.no_grad():
+                return cuda_ms(lambda: lstm(x), KERNEL_REPS)
+        leaves = [x, *lstm.parameters()]
+        return backward_ms(lambda: (lstm(x)[0],), leaves)
     except RuntimeError as e:            # no cuDNN LSTM for this dtype
         log(f"  cudnn yardstick unavailable for {dtype}: {e}")
         return None
+
+
+def backward_ms(forward, leaves, cot=None) -> tuple[float, float]:
+    """(backward alone, forward and backward) of a library call, by CUDA
+    events: the backward alone runs torch.autograd.grad on one forward's
+    retained graph (the forward outside the timed window).  forward()
+    returns a tuple of outputs; cot: their cotangents (ones by default).
+    Grads are returned, not accumulated into .grad."""
+    outs = forward()
+    cot = cot or tuple(torch.ones_like(o) for o in outs)
+    bwd = cuda_ms(lambda: torch.autograd.grad(outs, leaves, cot,
+                                              retain_graph=True), KERNEL_REPS)
+    return bwd, cuda_ms(lambda: torch.autograd.grad(forward(), leaves, cot),
+                        KERNEL_REPS)
 
 
 def bound(byte_count: float, ops: float, dtype) -> tuple[float, str]:
@@ -300,6 +327,8 @@ def check_kernel(name, wrapper, plain, args, tols, relative, ops, dtype,
                    if isinstance(a, torch.Tensor))
     out_bytes = sum(g.numel() * g.element_size() for g in got)
     bound_ms, bound_by = bound(in_bytes + out_bytes, ops, dtype)
+    lib = library()                      # a backward's: (alone, fwd + bwd)
+    lib_ms, lib_both = lib if isinstance(lib, tuple) else (lib, None)
     rec = {"name": name, "dtype": str(dtype).replace("torch.", ""),
            "shape": list(args[0].shape),
            "max_abs_err": max(e[0] for e in errs),
@@ -307,11 +336,15 @@ def check_kernel(name, wrapper, plain, args, tols, relative, ops, dtype,
            "rel_errors": [e[1] for e in errs], "tolerance": tols,
            "tolerance_relative": relative, "parity": ok, "ms": ms,
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library()}
+           "library_ms": lib_ms}
+    if lib_both is not None:
+        rec["library_fwd_bwd_ms"] = lib_both
     log(f"  {name} {rec['dtype']}: errors {checked} (tol {tols}, "
         f"{'relative' if relative else 'absolute'}) parity={ok} kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
-        f"({bound_by}), library {rec['library_ms']}")
+        f"({bound_by}), library {lib_ms}"
+        + ("" if lib_both is None
+           else f" (backward alone; fwd+bwd {lib_both})"))
     if not ok:
         raise RuntimeError(f"{name} {dtype} disagrees with its twin: {errs}")
     return rec
@@ -409,22 +442,21 @@ def kernel_phase(dev) -> dict:
     return records
 
 
-def head_library_ms(h2, w, b, t, cot=None) -> float:
+def head_library_ms(h2, w, b, t, cot=None):
     """torch.logsumexp of the dense logits and the target's logit (cuBLAS
-    at the operands' dtype), with cot=(dlse, dtl) also its autograd
-    backward: the yardstick only, never called by the port."""
+    at the operands' dtype); with cot=(dlse, dtl), (its autograd backward
+    alone, forward and backward): the yardstick only, never called by the
+    port."""
     leaves = [x.detach().requires_grad_(cot is not None) for x in (h2, w, b)]
 
     def run():
         hh, ww, bb = leaves
         logits = (hh @ ww.to(hh.dtype)).float() + bb
         lse = torch.logsumexp(logits, dim=-1)
-        tl = logits.gather(1, t[:, None].long())[:, 0]
-        if cot is not None:
-            torch.autograd.backward((lse, tl), cot)
+        return lse, logits.gather(1, t[:, None].long())[:, 0]
 
     if cot is not None:
-        return cuda_ms(run, KERNEL_REPS)
+        return backward_ms(run, leaves, cot)
     with torch.no_grad():
         return cuda_ms(run, KERNEL_REPS)
 
@@ -454,19 +486,28 @@ def head_kernel_phase(dev, rows: int, vocab: int) -> dict:
         dtl = -torch.rand((rows,), generator=gen).to(dev)
         # the function's least work: the logits once, dh2 and dw (the
         # kernels recompute the logits in each of their two passes)
+        bargs = (h2, w, b, t, lse, dlse, dtl)
         records[("head_bwd", dtype)] = check_kernel(
             "head_ce_bwd", head_ce.head_ce_bwd,
-            head_ce.head_lse_tgt_bwd_plain, (h2, w, b, t, lse, dlse, dtl),
+            head_ce.head_lse_tgt_bwd_plain, bargs,
             [HEAD_BWD_TOL[dtype]] * 3, True, 3 * products, dtype,
             lambda: head_library_ms(h2, w, b, t, (dlse, dtl)))
+        # two launches on the same inputs: the same bits
+        with torch.no_grad():
+            same = all(torch.equal(x, y) for x, y in zip(
+                head_ce.head_ce_bwd(*bargs), head_ce.head_ce_bwd(*bargs)))
+        records[("head_bwd", dtype)]["deterministic"] = same
+        log(f"  head_ce_bwd {dtype}: two launches bit-identical: {same}")
+        if not same:
+            raise RuntimeError(f"head_ce_bwd {dtype} is not deterministic")
     return records
 
 
-def attn_library_ms(q, k, v, kmask, pk, pv, pmask, nh, g=None) -> float:
+def attn_library_ms(q, k, v, kmask, pk, pv, pmask, nh, g=None):
     """F.scaled_dot_product_attention over each song's keys [its episode's
     prefix, repeated per song, ++ itself] under a boolean mask (key mask,
-    causal on the self part), with g also its autograd backward: the
-    yardstick only, never called by the port."""
+    causal on the self part); with g, (its autograd backward alone, forward
+    and backward): the yardstick only, never called by the port."""
     import torch.nn.functional as F
     from fewshot_torch.ops.prefix_attention import _heads
     s_, t, e = q.shape
@@ -481,15 +522,12 @@ def attn_library_ms(q, k, v, kmask, pk, pv, pmask, nh, g=None) -> float:
         vals = torch.cat([_heads(pv, nh).repeat_interleave(rep, 0), vals], 2)
     leaves = [x.to(q.dtype).detach().requires_grad_(g is not None)
               for x in (_heads(q, nh), keys, vals)]
-    gh = None if g is None else _heads(g, nh).to(q.dtype)
 
     def run():
-        out = F.scaled_dot_product_attention(*leaves, attn_mask=allow)
-        if gh is not None:
-            out.backward(gh)
+        return (F.scaled_dot_product_attention(*leaves, attn_mask=allow),)
 
     if g is not None:
-        return cuda_ms(run, KERNEL_REPS)
+        return backward_ms(run, leaves, (_heads(g, nh).to(q.dtype),))
     with torch.no_grad():
         return cuda_ms(run, KERNEL_REPS)
 
@@ -854,7 +892,7 @@ def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False,
         state, _ = one_step(state)
 
     step_ms = host_ms(one)
-    busy_ms, top = device_busy_ms(one, top=8)
+    busy_ms, top = device_busy_ms(one, top=12)
 
     ep = eps.sample_episode(torch.Generator(device=dev).manual_seed(123),
                             data, split, cfg.batch_size,
@@ -938,8 +976,35 @@ def flash_phase(dev) -> dict:
     return rec
 
 
-def build_all() -> None:
-    """Build every kernel source in parallel (one nvcc each), then load."""
+# the kernels whose bf16 route runs on tensor cores, by wrapper: (library,
+# the CUDA kernel's name in it)
+TENSOR_CORE = {"head_ce_bwd": ("head_ce", "head_ce_bwd_tc"),
+               "prefix_attn_fwd": ("prefix_attn", "fwd_tc_kernel")}
+
+
+def sass_hmma(lib: Path) -> dict:
+    """{kernel function: HMMA (tensor-core) instructions in its SASS} of a
+    built library, by cuobjdump; {} where cuobjdump is missing."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return {}
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
+def build_all() -> dict:
+    """Build every kernel source in parallel (one nvcc each), then load;
+    returns, per tensor-core wrapper, the HMMA instructions in its
+    kernels' SASS (None where cuobjdump is missing)."""
     from fewshot_torch.ops import _ext
     t0 = time.perf_counter()
     with futures.ThreadPoolExecutor(len(_ext.SIGNATURES)) as ex:
@@ -952,6 +1017,16 @@ def build_all() -> None:
         for line in _ext.build_log.get(name, "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    hmma = {}
+    for wrapper, (lib, kernel) in TENSOR_CORE.items():
+        counts = sass_hmma(_ext.library_path(lib))
+        hits = {fn: n for fn, n in counts.items() if kernel in fn}
+        hmma[wrapper] = sum(hits.values()) if counts else None
+        log(f"  sass {lib}: {kernel} HMMA instructions {hits or 'not read'}")
+        if counts and not (hits and all(hits.values())):
+            raise RuntimeError(f"{kernel}: no tensor-core instruction in "
+                               f"its SASS: {hits}")
+    return hmma
 
 
 def main() -> int:
@@ -968,7 +1043,7 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
-    build_all()
+    hmma = build_all()
 
     log("kernels vs plain twins (full width):")
     records = kernel_phase(dev)
@@ -1015,7 +1090,7 @@ def main() -> int:
     train_c = training_phase(
         "training_C", cache, scale, dev,
         ("lstm_layer_fwd", "lstm_layer_bwd", "head_ce_fwd", "head_ce_bwd"),
-        evaluate=True)
+        evaluate=True, per_step={"head_ce_fwd": 1, "head_ce_bwd": 1})
 
     # the episodic transformer: its attention shapes (query stream: B=32
     # episodes x Q=5 songs x L-1 rows against a K*L prefix; prefix stream:
@@ -1085,8 +1160,15 @@ def main() -> int:
             "parity": r["parity"] and f["parity"],
             "launches_per_train_step": phase["launches_per_step"][name],
             "fp32": {k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by",
-                                       "library_ms")}}
+                                       "bound_ms", "bound_by", "library_ms",
+                                       "library_fwd_bwd_ms") if k in f}}
+        if "library_fwd_bwd_ms" in r:    # library_ms is the backward alone
+            rec["library_fwd_bwd_ms"] = r["library_fwd_bwd_ms"]
+        if name in TENSOR_CORE:
+            rec["bf16_route"] = "tensor cores (mma.sync bf16)"
+            rec["sass_hmma"] = hmma[name]
+        if "deterministic" in r:
+            rec["deterministic"] = r["deterministic"] and f["deterministic"]
         if serve is not None:
             rec["launches_serving"] = serve["launches"][name]
             rec["launches_per_serving_batch"] = \
@@ -1102,7 +1184,9 @@ def main() -> int:
                 dt: {k: records[(key.replace("_query", "_prefix"),
                                  d)][k]
                      for k in ("shape", "max_abs_err", "ms", "plain_ms",
-                               "bound_ms", "bound_by", "library_ms")}
+                               "bound_ms", "bound_by", "library_ms",
+                               "library_fwd_bwd_ms")
+                     if k in records[(key.replace("_query", "_prefix"), d)]}
                 for dt, d in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32))}
         kernels.append(rec)

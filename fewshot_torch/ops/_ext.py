@@ -6,8 +6,8 @@ source without PyTorch's headers builds in seconds.  The wrappers check the
 tensors' device, dtype, shape and contiguity before they pass pointers, and
 launch with the tensors' device current (the helpers below).  The library
 goes into ``.torch_ext/`` at the repository root (ignored by git), named by
-a hash of its source and flags, so an edited source is rebuilt and
-an unchanged one is reused.  Nothing is built or loaded at import: the first
+a hash of its source, the ``csrc/`` headers it includes and the flags, so
+an edited source or header is rebuilt and an unchanged one is reused.  Nothing is built or loaded at import: the first
 kernel launch builds.
 """
 
@@ -16,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -69,12 +70,37 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def sources(name: str, csrc: Path = CSRC) -> list[Path]:
+    """csrc/<name>.cu and every header it includes by a quoted path,
+    directly or through another header, in the order first reached."""
+    found: list[Path] = []
+    todo = [csrc / f"{name}.cu"]
+    while todo:
+        f = todo.pop(0)
+        if f in found:
+            continue
+        found.append(f)
+        todo += [f.parent / inc for inc in _INCLUDE.findall(f.read_text())]
+    return found
+
+
+def library_path(name: str, csrc: Path = CSRC) -> Path:
+    """Where the library of csrc/<name>.cu goes: named by a hash of its
+    sources' bytes and the nvcc flags."""
+    h = hashlib.sha256()
+    for f in sources(name, csrc):
+        h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
 def build(name: str) -> Path:
     """Compile csrc/<name>.cu unless a library of the same hash exists."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f"lib{name}_{digest}.so"
+    out = library_path(name)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)

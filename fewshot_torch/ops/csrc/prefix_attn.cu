@@ -27,9 +27,10 @@
 // row maximum as in the streaming plan) rounded to the stream dtype before
 // p v; p and ds rounded before their products in the backward; outputs fp32.
 //
-// Design.  A TPU grid runs in order and carries the softmax state and the
-// dk/dv accumulators from one grid step to the next; blocks here run in no
-// order, so each block owns its outputs and loops over what they need:
+// Design (v1: every fp32 kernel, and the bf16 dq and dk/dv).  A TPU grid
+// runs in order and carries the softmax state and the dk/dv accumulators
+// from one grid step to the next; blocks here run in no order, so each
+// block owns its outputs and loops over what they need:
 //   * Forward: one block per (64-row query tile, head, song).  The q tile
 //     stays in shared memory; the block walks 64-key tiles, first the
 //     episode's prefix tiles (read in place from the [B, P, E] prefix, never
@@ -44,7 +45,29 @@
 //     accumulate in fp32 registers of the block: no float atomics, and the
 //     sums run in a fixed order (deterministic).
 // 256 threads each own a 4 x 4 piece of a 64 x 64 score tile (rows ty + 16 i,
-// columns tx + 16 j) and 4 rows x hd / 16 columns of a [64, hd] accumulator.
+// columns tx + 16 j) and 4 rows x hd / 16 columns of a [64, hd] accumulator,
+// and multiply on the fp32 SIMT units.
+//
+// The bf16 forward (v2, tensor cores; fwd_tc_kernel), FlashAttention-2
+// style, on the same grid and walk: 4 warps, each owning 16 of the block's
+// 64 query rows.  A warp keeps its q rows as mma A fragments in registers
+// for the whole walk; per key tile it forms its 16 x 64 scores with
+// mma.sync.m16n8k16 bf16 -> fp32 (K read by ldmatrix), masks and scales
+// them, updates its rows' running max and sum in registers (quad shuffles
+// for the max, the sum reduced once at the end), rounds p = exp(s - running
+// max) to bf16 in registers -- the TPU kernel's rounding point -- and feeds
+// it straight back as the A fragment of p v (V read by ldmatrix.trans).
+// K, V and the key mask go through a two-stage cp.async ring, so the next
+// tile loads while this one multiplies; the q tile borrows the ring's
+// second stage before the walk starts, which leaves a block 70 KB of
+// shared memory at hd = 128 and lets three blocks share an SM (with two,
+// the warps stalled issuing each next tile's copies: the kernel is bound
+// by its K/V traffic from L2, and more resident warps hide it).  A warp
+// whose 16 rows all lie past T (the second tile of a T = 95 song) or
+// wholly above the diagonal of a self tile skips the math.  One block
+// takes one song: the episode's Q songs read the same prefix tiles through
+// L2 (0.25 MB per episode and head at the training shape), which costs
+// less than the serialisation of one block per episode.
 // Masked keys carry the finite -1e30, never -inf, and l == 0 -> 1 and
 // log(max(l, 1e-30)) guard the division and the log, so a row whose every
 // key is masked stays finite; keys past the end of a sequence (the partial
@@ -55,16 +78,18 @@
 // 15.6 MB of fp32 output against ~4 GFLOP over the real (row, key) pairs,
 // so it is bound by bytes on this card (~16 us at 3.35 TB/s, ~4 us of bf16
 // tensor-core operations); dq and dk/dv move about as many bytes for 1.5x
-// and 2x the operations.  This first version multiplies on the fp32 SIMT
-// units (67 TFLOP/s peak) and rereads the prefix tiles once per song, far
-// from both bounds; tensor-core tiles (mma / wgmma), TMA stages and one
-// fused backward are the next steps.
+// and 2x the operations.  The v1 kernels multiply on the fp32 SIMT units
+// (67 TFLOP/s peak) and stage synchronously, far from both bounds;
+// tensor-core tiles and one fused deterministic pass for dq and dk/dv are
+// the next step for the backward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "mma.cuh"
 
 namespace {
 
@@ -596,6 +621,208 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 forward on tensor cores (v2)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = 32 * kTcWarps;  // 16 query rows a warp
+constexpr int kTcStages = 2;               // key tiles in flight
+
+// Shared memory: kTcStages stages of the K and V tiles ([64, hd] each,
+// pitched hd + 8) and the 64 key-mask floats, 70 KB at hd = 128, so three
+// blocks fit an SM.  The [64, hd] q tile is staged in the second stage's K
+// tile and read into registers before the ring reaches that stage.
+__host__ __device__ size_t fwd_tc_tile(int hd) {
+  return (size_t)kTile * (hd + 8) * sizeof(__nv_bfloat16);
+}
+__host__ __device__ size_t fwd_tc_stage(int hd) {
+  return 2 * fwd_tc_tile(hd) + kTile * sizeof(float);
+}
+size_t fwd_tc_smem(int hd) { return kTcStages * fwd_tc_stage(hd); }
+
+__global__ void __launch_bounds__(kTcThreads, 3) fwd_tc_kernel(Args a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kMaxK = kMaxHd / 16;  // 16-deep slices of q k^T
+  constexpr int kNf = kTile / 8;      // n-fragments of a score tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = a.hd, pitch = hd + 8, e = a.nh * hd;
+  const int nk = hd / 16;  // slices of q k^T; pairs of output n-fragments
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  unsigned char* stages = smem;
+  const size_t stage_bytes = fwd_tc_stage(hd);
+  bf16* sq = reinterpret_cast<bf16*>(stages + stage_bytes);  // stage 1
+  const int n_qt = (a.t + kTile - 1) / kTile;
+  const int qt = blockIdx.x % n_qt, s = blockIdx.x / n_qt, h = blockIdx.y;
+  const int row0 = qt * kTile, wrow0 = row0 + 16 * warp;
+  const bool live = wrow0 < a.t;  // warp-uniform
+  const int n_walk = (a.p + kTile - 1) / kTile + qt + 1;
+  const int per = hd / 8;  // 16-byte pieces per row
+
+  // 64 rows from row0 of a token-major [n, E] sequence (head h) into dst
+  auto stage_rows = [&](const bf16* seq, int n, int first, bf16* dst) {
+    for (int x = threadIdx.x; x < kTile * per; x += kTcThreads) {
+      const int r = x / per, c = (x % per) * 8, row = first + r;
+      const bool ok = row < n;
+      mma::cp_async16(dst + r * pitch + c,
+                      seq + (size_t)(ok ? row : 0) * e + h * hd + c,
+                      ok ? 16 : 0);
+    }
+  };
+  auto stage_keys = [&](int kt, int slot) {
+    const KeyTile t = key_tile(a, s, kt);
+    bf16* sk = reinterpret_cast<bf16*>(stages + slot * stage_bytes);
+    bf16* sv = sk + kTile * pitch;
+    float* sm = reinterpret_cast<float*>(sv + kTile * pitch);
+    stage_rows(static_cast<const bf16*>(t.prefix ? a.pk : a.k) + t.base, t.n,
+               t.col0, sk);
+    stage_rows(static_cast<const bf16*>(t.prefix ? a.pv : a.v) + t.base, t.n,
+               t.col0, sv);
+    if (threadIdx.x < kTile) {
+      const int key = t.col0 + threadIdx.x;
+      const bool ok = key < t.n;
+      mma::cp_async4(sm + threadIdx.x, t.mask + (ok ? key : 0), ok ? 4 : 0);
+    }
+  };
+
+  stage_rows(static_cast<const bf16*>(a.q) + (size_t)s * a.t * e, a.t, row0,
+             sq);
+  stage_keys(0, 0);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[kMaxK][4];  // the warp's q rows as A fragments
+  if (live) {
+#pragma unroll
+    for (int kk = 0; kk < kMaxK; ++kk)
+      if (kk < nk)
+        mma::ldsm_x4(qa[kk], sq + (16 * warp + mma::a_row(lane)) * pitch +
+                                 16 * kk + mma::a_col(lane));
+  }
+  __syncthreads();  // stage 1 is free for key tile 1
+  float o[kMaxHd / 8][4];
+#pragma unroll
+  for (int j = 0; j < kMaxHd / 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) o[j][x] = 0.0f;
+  // this thread's rows g and g + 8 of the warp's 16: running max and its
+  // share of the running sum
+  const int rows[2] = {wrow0 + g, wrow0 + g + 8};
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f};
+
+  for (int kt = 0; kt < n_walk; ++kt) {
+    const int slot = kt % kTcStages;
+    if (kt + 1 < n_walk) {
+      stage_keys(kt + 1, (slot + 1) % kTcStages);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt landed
+    const KeyTile t = key_tile(a, s, kt);
+    if (live && (t.prefix || t.col0 <= wrow0 + 15)) {
+      const bf16* sk = reinterpret_cast<const bf16*>(stages + slot * stage_bytes);
+      const bf16* sv = sk + kTile * pitch;
+      const float* sm = reinterpret_cast<const float*>(sv + kTile * pitch);
+      // scores: sc[j] = q k^T over keys 8 j .. 8 j + 7 of the tile
+      float sc[kNf][4];
+#pragma unroll
+      for (int j = 0; j < kNf; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) sc[j][x] = 0.0f;
+      const bf16* pk = sk + mma::bn_row(lane) * pitch + mma::bn_col(lane);
+#pragma unroll
+      for (int kk = 0; kk < kMaxK; ++kk) {
+        if (kk < nk) {
+#pragma unroll
+          for (int jp = 0; jp < kNf / 2; ++jp) {
+            uint32_t bfr[4];
+            mma::ldsm_x4(bfr, pk + 16 * jp * pitch + 16 * kk);
+            mma::mma_bf16(sc[2 * jp], qa[kk], bfr[0], bfr[1]);
+            mma::mma_bf16(sc[2 * jp + 1], qa[kk], bfr[2], bfr[3]);
+          }
+        }
+      }
+      // mask and scale (entry x of n-fragment j: row g + 8 (x / 2), key
+      // 8 j + 2 t4 + x % 2 of the tile), then the rows' new maxima
+      float mx[2] = {kNeg, kNeg};
+#pragma unroll
+      for (int j = 0; j < kNf; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int cl = 8 * j + 2 * t4 + (x & 1);
+          sc[j][x] = masked_score(sc[j][x], a.scale, t, t.col0 + cl, sm[cl],
+                                  rows[x / 2]);
+          mx[x / 2] = fmaxf(mx[x / 2], sc[j][x]);
+        }
+      float alpha[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        alpha[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+      // p = exp(s - running max), summed unrounded
+#pragma unroll
+      for (int j = 0; j < kNf; ++j)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          sc[j][x] = expf(sc[j][x] - m[x / 2]);
+          l[x / 2] += sc[j][x];
+        }
+#pragma unroll
+      for (int j = 0; j < kMaxHd / 8; ++j) {
+        o[j][0] *= alpha[0];
+        o[j][1] *= alpha[0];
+        o[j][2] *= alpha[1];
+        o[j][3] *= alpha[1];
+      }
+      // o += bf16(p) v, 16 keys at a time
+#pragma unroll
+      for (int c = 0; c < kNf / 2; ++c) {
+        uint32_t pf[4];
+        mma::pack_a(pf, sc[2 * c], sc[2 * c + 1]);
+        const bf16* pv = sv + (16 * c + mma::bk_row(lane)) * pitch +
+                         mma::bk_col(lane);
+#pragma unroll
+        for (int np = 0; np < kMaxK; ++np) {
+          if (np < nk) {
+            uint32_t bfr[4];
+            mma::ldsm_x4_trans(bfr, pv + 16 * np);
+            mma::mma_bf16(o[2 * np], pf, bfr[0], bfr[1]);
+            mma::mma_bf16(o[2 * np + 1], pf, bfr[2], bfr[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's prefetch overwrites this slot
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int r = rows[i];
+    if (r >= a.t) continue;
+    const float inv = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
+    float* out = a.out + ((size_t)s * a.t + r) * e + h * hd + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < kMaxHd / 8; ++j)
+      if (j < 2 * nk)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(o[j][2 * i] * inv, o[j][2 * i + 1] * inv);
+    if (t4 == 0)
+      a.lse_out[((size_t)s * a.nh + h) * a.t + r] =
+          m[i] + logf(fmaxf(l[i], 1e-30f));
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -607,12 +834,12 @@ bool bad_shape(const Args& a) {
 
 template <typename K>
 cudaError_t launch(K kernel, dim3 grid, size_t smem, const Args& a,
-                   cudaStream_t st) {
+                   cudaStream_t st, int threads = kThreads) {
   if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kernel<<<grid, kThreads, smem, st>>>(a);
+  kernel<<<grid, threads, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -625,6 +852,11 @@ template <typename T>
 cudaError_t fwd(const Args& a, cudaStream_t st) {
   return launch(fwd_kernel<T>, query_grid(a), Smem<T>::bytes(a.hd, 3, 1), a,
                 st);
+}
+
+cudaError_t fwd_tc(const Args& a, cudaStream_t st) {
+  return launch(fwd_tc_kernel, query_grid(a), fwd_tc_smem(a.hd), a, st,
+                kTcThreads);
 }
 
 template <typename T>
@@ -670,7 +902,8 @@ bool empty(const Args& a) { return a.songs == 0 || a.t == 0; }
 // dtype: 0 = fp32 streams, 1 = bf16 streams.  q, k, v [S, T, E] and
 // pk, pv [B, P, E] (B = S / Q; null with P = 0) in the stream dtype, E =
 // nh hd; kmask [S, T] and pmask [B, P] fp32 (> 0 = real key).
-// Out: out [S, T, E] and lse [S, nh, T] fp32.  Returns a cudaError_t code
+// Out: out [S, T, E] and lse [S, nh, T] fp32.  dtype 0 runs the v1 SIMT
+// kernel, dtype 1 the tensor-core kernel.  Returns a cudaError_t code
 // (0 = launched).
 extern "C" int prefix_attn_fwd(const void* q, const void* k, const void* v,
                                const float* kmask, const void* pk,
@@ -686,7 +919,7 @@ extern "C" int prefix_attn_fwd(const void* q, const void* k, const void* v,
   if (empty(a)) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return fwd<float>(a, st);
-  if (dtype == 1) return fwd<__nv_bfloat16>(a, st);
+  if (dtype == 1) return fwd_tc(a, st);
   return cudaErrorInvalidValue;
 }
 

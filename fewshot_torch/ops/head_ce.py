@@ -9,7 +9,9 @@ a running (max, sum-exp) over 64-column tiles; the backward
 (``head_ce_bwd``) recomputes each logits tile, forms dlogits = dlse p + dtl
 onehot(target), rounds it to the operand dtype, and contracts it into dh2
 (one pass over row tiles) and into per-chunk dW/db partials (one pass over
-vocab tiles) that the wrapper adds up.
+vocab tiles) that the wrapper adds up.  bf16 backs onto the tensor-core
+backward (mma.sync bf16 tiles, register accumulators); fp32, and the
+forward in both dtypes, onto the v1 SIMT kernels.
 
 Rounding points are the TPU kernels': operands in the compute dtype with
 fp32 products and sums, w cast to h2's dtype, dlogits rounded before both
@@ -65,13 +67,20 @@ def fused_head_nll_supported(d: int, v: int,
 
 
 def max_head_dim(dtype: torch.dtype) -> int:
-    """The largest head width D the backward kernels take in dtype.
+    """The largest head width D the backward kernels take in dtype (a
+    multiple of 64; the forward takes any multiple of 64).
 
-    A backward block keeps an fp32 [64, D + 16] accumulator in shared memory
-    beside its staging buffers (two double-buffered [64, 32 + 16 B] operand
-    chunks, aliased by one [64, 64 + 16 B] window) and the [64, 65] fp32
-    dlogits tile (csrc/head_ce.cu Layout::bwd_smem); D is a multiple of 64.
-    The forward takes any multiple of 64."""
+    fp32 (the v1 SIMT kernels): a block keeps an fp32 [64, D + 16]
+    accumulator in shared memory beside its staging buffers (two
+    double-buffered [64, 32 + 16 B] operand chunks, aliased by one
+    [64, 64 + 16 B] window) and the [64, 65] fp32 dlogits tile.
+    bf16 (the tensor-core kernels): a block keeps a [64, D + 8] bf16 outer
+    tile and two stages of a [32, D + 8] bf16 inner tile with 4 floats per
+    inner row (csrc/head_ce.cu TcLayout; its accumulators live in
+    registers, 256 columns a block)."""
+    if dtype == torch.bfloat16:
+        per_col = 2 * (_TILE + 2 * 32)          # bytes per unit of D + 8
+        return ((SMEM_BYTES - 2 * 4 * 32 * 4) // per_col - 8) // 64 * 64
     size = itemsize(dtype)
     vec = 16 // size
     stage = max(2 * 2 * _TILE * (32 + vec) * size, _TILE * (64 + vec) * size)
@@ -87,7 +96,7 @@ def check_head_dim(d: int, dtype: torch.dtype, train: bool) -> None:
         raise ValueError(
             f"head width {d} exceeds the head+CE backward kernels' limit of "
             f"{max_head_dim(dtype)} for {dtype} (one block's shared memory "
-            f"holds a [64, D] fp32 accumulator)")
+            f"holds its [64, D] tiles)")
 
 
 # ---------------------------------------------------------------------------
@@ -182,14 +191,18 @@ def head_ce_fwd(h2, w, b, targets):
 head_ce_fwd.launches = 0
 
 
-def _dw_splits(rows: int, vocab: int, device: torch.device) -> int:
+def _dw_splits(rows: int, vocab: int, dtype: torch.dtype,
+               device: torch.device) -> int:
     """Row chunks of the dW pass: vocab tiles alone are fewer blocks than
-    the card has SMs, so each tile's rows split into chunks, about two
-    blocks per SM in all."""
+    the card has SMs, so each tile's rows split into chunks.  bf16: as many
+    as fill the two blocks an SM holds in one wave; fp32: about two blocks
+    per SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     vtiles = -(-vocab // _TILE)
     rtiles = max(1, -(-rows // _TILE))
-    return max(1, min(rtiles, -(-2 * sms // vtiles)))
+    per_tile = (2 * sms // vtiles if dtype == torch.bfloat16
+                else -(-2 * sms // vtiles))
+    return max(1, min(rtiles, per_tile))
 
 
 def head_ce_bwd(h2, w, b, targets, lse, dlse, dtl):
@@ -213,7 +226,7 @@ def head_ce_bwd(h2, w, b, targets, lse, dlse, dtl):
     v = wt.shape[0]
     lib = _ext.load("head_ce")
     with torch.cuda.device(h2.device):
-        splits = _dw_splits(r, v, h2.device)
+        splits = _dw_splits(r, v, h2.dtype, h2.device)
         dh2 = torch.empty_like(h2c)
         dwt = torch.empty((splits, v, d), device=h2.device)
         db = torch.empty((splits, v), device=h2.device)

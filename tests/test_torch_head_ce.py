@@ -9,7 +9,10 @@ fewshot/ops/head_ce.py.
 * the routing predicate ``fused_head_nll_supported`` against JAX's;
 * the wrappers' device handling and the kernels' head-width limit;
 * on a CUDA card (skipped elsewhere): both kernels against their plain
-  twins, with the launch counters.
+  twins, with the launch counters, at shapes that cut the tensor-core
+  backward's tiles raggedly (R and V off the 64-row tiles, D = 64, a D
+  past one 256-wide slice, the largest D the bf16 backward takes); the
+  backward gives the same bits on two launches.
 
 Inputs come from numpy seeds; the JAX side runs once per plan, in a
 subprocess with FEWSHOT_PALLAS_INTERPRET=1 (the plan flags are read when
@@ -35,6 +38,10 @@ from fewshot_torch.ops import head_ce
 
 REPO = Path(__file__).resolve().parent.parent
 CASES = {"100x256x1537": (100, 256, 1537), "37x128x300": (37, 128, 300)}
+# the on-card cases: CASES, D = 64, D = 384 (two output slices), D = 896
+# (the bf16 backward's limit: 32-row inner tiles, four slices)
+CUDA_CASES = {**CASES, "70x64x333": (70, 64, 333),
+              "130x384x1000": (130, 384, 1000), "33x896x257": (33, 896, 257)}
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 PLANS = {"resident": {},
          "tiled": {"FEWSHOT_HEAD_CE_FORCE_TILED": "1",
@@ -70,9 +77,9 @@ np.savez(d + "/jax_out.npz", **out)
 """
 
 
-def _inputs() -> dict:
+def _inputs(cases=CASES) -> dict:
     z = {}
-    for i, (case, (r, d, v)) in enumerate(sorted(CASES.items())):
+    for i, (case, (r, d, v)) in enumerate(sorted(cases.items())):
         rng = np.random.RandomState(20 + i)
         t = rng.randint(0, v, r)
         t[0], t[1] = 0, v - 1
@@ -156,17 +163,19 @@ def test_routing_predicate_matches_jax(d, v):
 
 
 def test_head_width_limits():
-    """The backward keeps a [64, D] fp32 accumulator per block: D up to 640
-    (fp32) / 704 (bf16), a multiple of 64; the forward takes any multiple
-    of 64.  Widths the JAX predicate admits at H=512 fit."""
+    """The backward's block holds its [64, D] tiles in shared memory: D up
+    to 640 (fp32, beside an fp32 accumulator) / 896 (bf16, tensor-core
+    tiles), a multiple of 64; the forward takes any multiple of 64.  Widths
+    the JAX predicate admits at H=512 fit."""
     assert head_ce.max_head_dim(torch.float32) == 640
-    assert head_ce.max_head_dim(torch.bfloat16) == 704
+    assert head_ce.max_head_dim(torch.bfloat16) == 896
     head_ce.check_head_dim(512, torch.float32, train=True)
+    head_ce.check_head_dim(896, torch.bfloat16, train=True)
     head_ce.check_head_dim(4096, torch.bfloat16, train=False)
     with pytest.raises(ValueError, match="multiple of 64"):
         head_ce.check_head_dim(96, torch.float32, train=False)
     with pytest.raises(ValueError, match="limit"):
-        head_ce.check_head_dim(768, torch.bfloat16, train=True)
+        head_ce.check_head_dim(960, torch.bfloat16, train=True)
 
 
 def test_wrappers_take_cpu_or_cuda_only():
@@ -193,12 +202,13 @@ def cuda_device():
 
 
 @pytest.mark.parametrize("name", sorted(DTYPES))
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
 def test_kernels_match_twins_on_cuda(cuda_device, case, name):
     """Both kernels against their twins on the card, launches counted; the
-    tied-head layout (w a transposed view of a [V, D] table) included."""
+    tied-head layout (w a transposed view of a [V, D] table) included; a D
+    past the dtype's backward limit raises there."""
     dt = DTYPES[name]
-    z = _inputs()
+    z = _inputs(CUDA_CASES)
     h2, w, b, t = (x.to(cuda_device) for x in _torch_case(z, case, dt))
     w = w.T.contiguous().T                       # [D, V] view of [V, D]
     dlse = torch.tensor(z[case + "_dlse"]).to(cuda_device)
@@ -206,13 +216,36 @@ def test_kernels_match_twins_on_cuda(cuda_device, case, name):
     f0, b0 = head_ce.head_ce_fwd.launches, head_ce.head_ce_bwd.launches
     lse, tl = head_ce.head_ce_fwd(h2, w, b, t)
     want = head_ce.head_lse_tgt_plain(h2, w, b, t)
+    torch.cuda.synchronize()
+    assert head_ce.head_ce_fwd.launches == f0 + 1
+    for g, wv in zip((lse, tl), want):
+        _close(g, wv.cpu().numpy(), FWD_TOL, False)
+    if CUDA_CASES[case][1] > head_ce.max_head_dim(dt):
+        with pytest.raises(ValueError, match="limit"):
+            head_ce.head_ce_bwd(h2, w, b, t, want[0], dlse, dtl)
+        return
     got_b = head_ce.head_ce_bwd(h2, w, b, t, want[0], dlse, dtl)
     want_b = head_ce.head_lse_tgt_bwd_plain(h2, w, b, t, want[0], dlse, dtl)
     torch.cuda.synchronize()
-    assert head_ce.head_ce_fwd.launches == f0 + 1
     assert head_ce.head_ce_bwd.launches == b0 + 1
-    for g, wv in zip((lse, tl), want):
-        _close(g, wv.cpu().numpy(), FWD_TOL, False)
     for k, g, wv in zip(("dh2", "dw", "db"), got_b, want_b):
         assert g.shape == wv.shape and g.dtype == wv.dtype, k
         _close(g, wv.float().cpu().numpy(), GRAD_TOL[name], True, k)
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES))
+def test_backward_is_deterministic_on_cuda(cuda_device, name):
+    """Two launches of the backward on the same inputs give the same bits:
+    the dW/db partials are summed in a fixed order, without atomics."""
+    case = "300x256x5000"
+    z = _inputs({case: (300, 256, 5000)})
+    h2, w, b, t = (x.to(cuda_device) for x in _torch_case(z, case,
+                                                         DTYPES[name]))
+    w = w.T.contiguous().T
+    dlse = torch.tensor(z[case + "_dlse"]).to(cuda_device)
+    dtl = torch.tensor(z[case + "_dtl"]).to(cuda_device)
+    lse, _ = head_ce.head_lse_tgt_plain(h2, w, b, t)
+    first = head_ce.head_ce_bwd(h2, w, b, t, lse, dlse, dtl)
+    second = head_ce.head_ce_bwd(h2, w, b, t, lse, dlse, dtl)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)

@@ -5,12 +5,16 @@
 * each package loads a corpus that the other packed;
 * load_config on the shipped YAMLs gives the same Config, field by field;
 * importing every fewshot_torch module loads no JAX and no fewshot module,
-  and no source of the port or of chip_smoke.py imports them.
+  and no source of the port or of chip_smoke.py imports them;
+* a kernel library's name follows the bytes of its source and of the
+  csrc/ headers it includes, so an edited header is rebuilt (no nvcc
+  needed: the name is computed before any build).
 """
 
 import dataclasses
 import itertools
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -24,6 +28,7 @@ from fewshot.data import synthetic as jsynthetic
 from fewshot_torch import config as tconfig
 from fewshot_torch.data import corpus as tcorpus
 from fewshot_torch.data import synthetic as tsynthetic
+from fewshot_torch.ops import _ext
 
 REPO = Path(__file__).resolve().parent.parent
 ARRAYS = ("songs", "song_len", "song_artist", "artist_song_ids",
@@ -146,3 +151,21 @@ def test_isolation_guard_sources():
     for f in files:
         hits = _BANNED.findall(f.read_text())
         assert not hits, (f, hits)
+
+
+@pytest.mark.parametrize("edited", ["mma.cuh", "head_ce.cu"])
+def test_library_name_follows_sources_and_headers(tmp_path, edited):
+    """Editing a header renames the library of every source that includes
+    it; editing a source renames its own; the others keep their names."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_ext.CSRC, csrc)
+    before = {n: _ext.library_path(n, csrc) for n in _ext.SIGNATURES}
+    assert before == {n: _ext.library_path(n) for n in _ext.SIGNATURES}
+    users = {n for n in _ext.SIGNATURES
+             if edited in {f.name for f in _ext.sources(n, csrc)}}
+    assert users == ({"head_ce", "prefix_attn"} if edited == "mma.cuh"
+                     else {"head_ce"})
+    f = csrc / edited
+    f.write_bytes(f.read_bytes() + b"\n// edited\n")
+    after = {n: _ext.library_path(n, csrc) for n in _ext.SIGNATURES}
+    assert {n for n in after if after[n] != before[n]} == users

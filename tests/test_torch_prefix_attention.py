@@ -17,7 +17,10 @@ fewshot/ops/prefix_attention.py and fewshot/ops/attention.py.
   against the JAX einsum paths; the ``cfg.flash`` route (the no-prefix
   twin) against the einsum path at the real query positions;
 * the wrappers' device and shape checks; on a CUDA card (skipped
-  elsewhere) the three kernels against their twins, launches counted.
+  elsewhere) the three kernels against their twins, launches counted, also
+  at the training path's song length (T = 95: a second 64-row tile with
+  31 live rows) against a 480-key prefix and without one, hd 32, 64 and
+  128; and a song whose every key is masked (finite forward).
 
 Inputs come from numpy seeds; the JAX side runs once per plan in a
 subprocess with FEWSHOT_PALLAS_INTERPRET=1 (the plan flags are read per
@@ -48,6 +51,11 @@ REPO = Path(__file__).resolve().parent.parent
 CASES = {"h32": (2, 2, 20, 2, 12, 2, 32),
          "h128": (2, 2, 20, 2, 12, 2, 128),
          "long": (1, 2, 130, 2, 20, 1, 128)}
+# the on-card cases: CASES and the training path's T = 95 against a
+# 5 x 96-slot prefix, at E = 256
+CUDA_CASES = {**CASES, "t95_h32": (2, 5, 95, 5, 96, 8, 32),
+              "t95_h64": (2, 5, 95, 5, 96, 4, 64),
+              "t95_h128": (2, 5, 95, 5, 96, 2, 128)}
 PLANS = {"stream": ({"FEWSHOT_PREFIX_PLAN": "stream"}, ("h32", "h128")),
          "heads": ({"FEWSHOT_PREFIX_PLAN": "resident",
                     "FEWSHOT_PREFIX_RES_LAYOUT": "heads"}, ("h32", "h128")),
@@ -103,10 +111,10 @@ np.savez(d + "/jax_out.npz", **out)
 """
 
 
-def _inputs() -> dict:
+def _inputs(cases=CASES) -> dict:
     z = {}
     for i, (case, (b, q_, lq, k_, l_, nh, hd)) in enumerate(
-            sorted(CASES.items())):
+            sorted(cases.items())):
         rng = np.random.RandomState(40 + i)
         p = k_ * l_
 
@@ -274,21 +282,13 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("name", sorted(DTYPES))
-@pytest.mark.parametrize("case", sorted(CASES))
-@pytest.mark.parametrize("prefix", [True, False])
-def test_kernels_match_twins_on_cuda(cuda_device, case, name, prefix):
-    """The three kernels against their twins on the card, launches
-    counted; ragged sequences that are not multiples of the 64-row tiles."""
-    b, q_, lq, k_, l_, nh, hd = CASES[case]
-    dt = DTYPES[name]
-    z = _inputs()
-    e = nh * hd
-    dev = cuda_device
+def _cuda_args(z, case, dt, prefix, dev):
+    """(q, k, v, kmask, pk, pv, pmask, nh) of a case on the card."""
+    b, q_, lq, k_, l_, nh, hd = CUDA_CASES[case]
+    s_, e = b * q_, nh * hd
 
     def put(k, shape):
         return torch.tensor(z[f"{case}_{k}"]).reshape(shape).to(dev, dt)
-    s_ = b * q_
     q, k, v = (put(x, (s_, lq, e)) for x in ("qq", "qk", "qv"))
     kmask = torch.tensor(z[f"{case}_qmask"]).reshape(s_, lq).float().to(dev)
     pre = (put("pk", (b, k_ * l_, e)), put("pv", (b, k_ * l_, e)),
@@ -296,7 +296,21 @@ def test_kernels_match_twins_on_cuda(cuda_device, case, name, prefix):
         else (None, None, None)
     if not prefix:
         kmask[:, 0] = 1.0                 # every row has a real key
-    args = (q, k, v, kmask, *pre, nh)
+    return (q, k, v, kmask, *pre, nh)
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES))
+@pytest.mark.parametrize("case", sorted(CUDA_CASES))
+@pytest.mark.parametrize("prefix", [True, False])
+def test_kernels_match_twins_on_cuda(cuda_device, case, name, prefix):
+    """The three kernels against their twins on the card, launches
+    counted; ragged sequences that are not multiples of the 64-row tiles."""
+    b, q_, lq, k_, l_, nh, hd = CUDA_CASES[case]
+    dt = DTYPES[name]
+    z = _inputs(CUDA_CASES)
+    dev = cuda_device
+    args = _cuda_args(z, case, dt, prefix, dev)
+    s_, e = b * q_, nh * hd
     counts = [f.launches for f in (pa.prefix_attn_fwd, pa.prefix_attn_bwd_dq,
                                    pa.prefix_attn_bwd_dkv)]
     out, lse = pa.prefix_attn_fwd(*args)
@@ -317,3 +331,27 @@ def test_kernels_match_twins_on_cuda(cuda_device, case, name, prefix):
     assert len(dkv) == len(want_dkv) == (4 if prefix else 2)
     for gt, wt in zip((dq, *dkv), (want_dq, *want_dkv)):
         _close(gt.cpu(), wt.cpu().numpy(), GRAD_TOL[name], True, "grad")
+
+
+@pytest.mark.parametrize("name", sorted(DTYPES))
+@pytest.mark.parametrize("prefix", [True, False])
+def test_forward_with_a_fully_masked_song_on_cuda(cuda_device, name,
+                                                  prefix):
+    """Song 0 has no real key (and, with a prefix, neither has its
+    episode's prefix): its rows come out finite; the other songs, whose
+    rows keep their real keys, match the twin."""
+    case = "t95_h128"
+    z = _inputs(CUDA_CASES)
+    q, k, v, kmask, pk, pv, pmask, nh = _cuda_args(z, case, DTYPES[name],
+                                                   prefix, cuda_device)
+    kmask[0] = 0.0
+    if prefix:
+        pmask[0] = 0.0
+    args = (q, k, v, kmask, pk, pv, pmask, nh)
+    out, lse = pa.prefix_attn_fwd(*args)
+    want_out, want_lse = pa.prefix_attn_fwd_plain(*args)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all()) and bool(torch.isfinite(lse).all())
+    _close(out[1:].cpu(), want_out[1:].cpu().numpy(), FWD_TOL[name], False,
+           "out")
+    _close(lse[1:].cpu(), want_lse[1:].cpu().numpy(), 1e-4, False, "lse")
