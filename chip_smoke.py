@@ -8,9 +8,9 @@ Phases, each of which exits non-zero on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from fewshot_torch/ops/csrc (one nvcc per
      source, all started together; sm_90a), and count the tensor-core
-     (HMMA) instructions in the SASS of the two bf16 tensor-core kernels
-     (the head+CE backward, the prefix-attention forward); a kernel with
-     none fails the run;
+     (HMMA) instructions in the SASS of the four bf16 tensor-core kernels
+     (the head+CE backward, the prefix-attention forward, dq and dk/dv); a
+     kernel with none fails the run;
   3. each recurrence kernel against its plain PyTorch twin at full width
      (E=256, H=512, 2 layers; bf16 and fp32; ragged masks): the two
      forward kernels (and their train-mode gate activations) and the two
@@ -55,7 +55,8 @@ Phases, each of which exits non-zero on failure:
      prefix stream: 32 x 480 rows, no prefix; nh=2, hd=128; bf16 and fp32;
      ragged masks), with F.scaled_dot_product_attention over [prefix ++
      self] under a boolean mask (its autograd backward alone for dq and
-     dk/dv) as the yardstick;
+     dk/dv) as the yardstick, and dq and dk/dv bit-identical on a second
+     launch;
  11. training phase D, the episodic transformer with the full cache stack
      (scripts/scale_quality.py's tfm_cache_full leg: 2 layers, E=256,
      nh=2, mean_state, B=32) on the V=5000 corpus, as C: the attention
@@ -598,6 +599,19 @@ def attn_kernel_phase(dev, shapes) -> dict:
                 pa.prefix_attn_bwd_dkv_plain, bargs,
                 [ATTN_BWD_TOL[dtype]] * (2 if pk is None else 4), True,
                 4 * pair_ops, dtype, lambda: attn_library_ms(*args, g=g))
+            # two launches on the same inputs: the same bits
+            for key, fn in (("dq", lambda: (pa.prefix_attn_bwd_dq(*bargs),)),
+                            ("dkv", lambda: pa.prefix_attn_bwd_dkv(*bargs))):
+                with torch.no_grad():
+                    same = all(torch.equal(x, y)
+                               for x, y in zip(fn(), fn()))
+                records[(f"attn_{key}_{label}", dtype)]["deterministic"] = \
+                    same
+                log(f"  prefix_attn_bwd_{key} {label} {dtype}: two launches "
+                    f"bit-identical: {same}")
+                if not same:
+                    raise RuntimeError(f"prefix_attn_bwd_{key} {label} "
+                                       f"{dtype} is not deterministic")
             for key in ("fwd", "dq", "dkv"):
                 records[(f"attn_{key}_{label}", dtype)]["shape"] = \
                     [b, q_, t, p, nh, ATTN_HD]
@@ -979,7 +993,9 @@ def flash_phase(dev) -> dict:
 # the kernels whose bf16 route runs on tensor cores, by wrapper: (library,
 # the CUDA kernel's name in it)
 TENSOR_CORE = {"head_ce_bwd": ("head_ce", "head_ce_bwd_tc"),
-               "prefix_attn_fwd": ("prefix_attn", "fwd_tc_kernel")}
+               "prefix_attn_fwd": ("prefix_attn", "fwd_tc_kernel"),
+               "prefix_attn_bwd_dq": ("prefix_attn", "dq_tc_kernel"),
+               "prefix_attn_bwd_dkv": ("prefix_attn", "dkv_tc_kernel")}
 
 
 def sass_hmma(lib: Path) -> dict:
@@ -1185,7 +1201,7 @@ def main() -> int:
                                  d)][k]
                      for k in ("shape", "max_abs_err", "ms", "plain_ms",
                                "bound_ms", "bound_by", "library_ms",
-                               "library_fwd_bwd_ms")
+                               "library_fwd_bwd_ms", "deterministic")
                      if k in records[(key.replace("_query", "_prefix"), d)]}
                 for dt, d in (("bfloat16", torch.bfloat16),
                               ("float32", torch.float32))}

@@ -27,10 +27,10 @@
 // row maximum as in the streaming plan) rounded to the stream dtype before
 // p v; p and ds rounded before their products in the backward; outputs fp32.
 //
-// Design (v1: every fp32 kernel, and the bf16 dq and dk/dv).  A TPU grid
-// runs in order and carries the softmax state and the dk/dv accumulators
-// from one grid step to the next; blocks here run in no order, so each
-// block owns its outputs and loops over what they need:
+// Design (v1: every fp32 kernel).  A TPU grid runs in order and carries
+// the softmax state and the dk/dv accumulators from one grid step to the
+// next; blocks here run in no order, so each block owns its outputs and
+// loops over what they need:
 //   * Forward: one block per (64-row query tile, head, song).  The q tile
 //     stays in shared memory; the block walks 64-key tiles, first the
 //     episode's prefix tiles (read in place from the [B, P, E] prefix, never
@@ -46,7 +46,7 @@
 //     sums run in a fixed order (deterministic).
 // 256 threads each own a 4 x 4 piece of a 64 x 64 score tile (rows ty + 16 i,
 // columns tx + 16 j) and 4 rows x hd / 16 columns of a [64, hd] accumulator,
-// and multiply on the fp32 SIMT units.
+// and multiply on the fp32 SIMT units; in fp32 no rounding point rounds.
 //
 // The bf16 forward (v2, tensor cores; fwd_tc_kernel), FlashAttention-2
 // style, on the same grid and walk: 4 warps, each owning 16 of the block's
@@ -68,6 +68,37 @@
 // takes one song: the episode's Q songs read the same prefix tiles through
 // L2 (0.25 MB per episode and head at the training shape), which costs
 // less than the serialisation of one block per episode.
+//
+// The bf16 backward (v2, tensor cores; dq_tc_kernel, dkv_tc_kernel)
+// replaces `_dq_kernel` and `_dkv_kernel` (streaming plan) and the
+// backward halves of `_res_bwd_kernel` and `_tm_bwd_kernel` (fed, as the
+// token-major VJP feeds them, the global lse and delta).  Two kernels, each
+// computing the score tile in the orientation its outputs need, so that
+// each product's A operand comes straight out of the previous product's
+// accumulators (mma.cuh pack_a):
+//   * dq_tc_kernel: the forward's grid, walk and ring; a warp keeps its 16
+//     rows of q and g as A fragments, forms s = q k^T and dp = g v^T, then
+//     ds = p (dp - delta) scale in registers, and feeds bf16(ds) into
+//     dq += ds k (K by ldmatrix.trans).
+//   * dkv_tc_kernel: v1's key-tile grid; a warp owns 16 keys as the M
+//     dimension, forms s^T = k q^T and dp^T = v g^T, and feeds bf16(p^T)
+//     and bf16(ds^T) into dv += p^T g and dk += ds^T q.  The self branch's
+//     causal mask is the forward's transposed (key c sees row r >= c).  K
+//     and V stay resident in shared memory and their A fragments are read
+//     by ldmatrix at each use: as registers beside the 128 of dk and dv
+//     they would spill.  Q, G, lse and delta stream through a two-stage
+//     cp.async ring.
+// A pass covers 32 keys (dq) or 32 query rows (dk/dv) of a 64-wide tile,
+// so a warp holds two 16 x 32 fp32 tiles beside its accumulators (209 and
+// 234 registers at hd = 128, no spills: two blocks an SM), and skips a pass
+// wholly past the sequence or on the masked side of the diagonal.  One
+// fused pass for dq and dk/dv cannot own both dq (query-major) and the
+// prefix dk/dv (summed over the episode's Q songs) without a cross-block
+// reduction: float atomics (run-dependent sums) or per-key-tile dq
+// partials (~10x dq's bytes at the training shape).  Two kernels recompute
+// s and dp (7 products against 5) and stay deterministic: every block owns
+// its outputs and sums in a fixed order, with no atomics.
+//
 // Masked keys carry the finite -1e30, never -inf, and l == 0 -> 1 and
 // log(max(l, 1e-30)) guard the division and the log, so a row whose every
 // key is masked stays finite; keys past the end of a sequence (the partial
@@ -79,9 +110,11 @@
 // so it is bound by bytes on this card (~16 us at 3.35 TB/s, ~4 us of bf16
 // tensor-core operations); dq and dk/dv move about as many bytes for 1.5x
 // and 2x the operations.  The v1 kernels multiply on the fp32 SIMT units
-// (67 TFLOP/s peak) and stage synchronously, far from both bounds;
-// tensor-core tiles and one fused deterministic pass for dq and dk/dv are
-// the next step for the backward.
+// (67 TFLOP/s peak) and stage synchronously, far from both bounds.  The v2
+// kernels are latency-bound: mma.sync with 16 rows a warp and two to three
+// blocks an SM leave each warp's chain of shared-memory loads, products and
+// exponentials exposed; wgmma on 64-row warpgroup tiles fed by TMA is the
+// next step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,42 +134,13 @@ constexpr int kMaxCols = kMaxHd / 16;  // accumulator columns per thread
 constexpr float kNeg = -1e30f;
 constexpr int kMaxSmem = 227 * 1024;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T and back
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
-
-// 16 bytes of T as floats
+// 16 bytes as floats
 __device__ __forceinline__ void unpack(const uint4& v, float (&out)[4]) {
   const float4 f = *reinterpret_cast<const float4*>(&v);
   out[0] = f.x;
   out[1] = f.y;
   out[2] = f.z;
   out[3] = f.w;
-}
-__device__ __forceinline__ void unpack(const uint4& v, float (&out)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const float2 f = __bfloat1622float2(h[p]);
-    out[2 * p] = f.x;
-    out[2 * p + 1] = f.y;
-  }
 }
 
 struct Args {
@@ -166,13 +170,12 @@ struct Args {
   float scale;
 };
 
-template <typename T>
 struct Smem {
-  static constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16 B
-  // elements per tile row
+  static constexpr int kVec = 4;  // floats per 16 bytes
+  // floats per tile row
   static __host__ __device__ int pitch(int hd) { return hd + kVec; }
   static size_t tile_bytes(int hd) {
-    return (size_t)kTile * pitch(hd) * sizeof(T);
+    return (size_t)kTile * pitch(hd) * sizeof(float);
   }
   // n_tiles [64, hd] operand tiles, n_scores [64, 65] fp32 tiles, and 3
   // per-row (or per-key) fp32 vectors of 64
@@ -186,11 +189,10 @@ struct Smem {
 // Rows [row0, row0 + 64) x columns [col0, col0 + hd) of a row-major [n, ld]
 // matrix into dst (pitch elements per row), 16 bytes a thread at a time;
 // rows past n read as zero.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int n,
+__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int n,
                                            int ld, int row0, int col0, int hd,
-                                           T* dst, int pitch) {
-  constexpr int kVec = Smem<T>::kVec;
+                                           float* dst, int pitch) {
+  constexpr int kVec = Smem::kVec;
   const int per = hd / kVec;
   for (int e = threadIdx.x; e < kTile * per; e += kThreads) {
     const int r = e / per, c = (e % per) * kVec;
@@ -204,10 +206,10 @@ __device__ __forceinline__ void stage_rows(const T* __restrict__ src, int n,
 
 // acc[i][j] = sum over d < hd of A[ty + 16 i][d] B[tx + 16 j][d], fp32 sums
 // of the staged operands (both [64, hd] tiles with the same pitch).
-template <typename T>
-__device__ __forceinline__ void dot_tile(const T* A, const T* B, int pitch,
-                                         int hd, float (&acc)[4][4]) {
-  constexpr int kVec = Smem<T>::kVec;
+__device__ __forceinline__ void dot_tile(const float* A, const float* B,
+                                         int pitch, int hd,
+                                         float (&acc)[4][4]) {
+  constexpr int kVec = Smem::kVec;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -294,13 +296,12 @@ __device__ __forceinline__ float masked_score(float dot, float scale,
 // forward
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hd = a.hd, pitch = Smem<T>::pitch(hd), e = a.nh * hd;
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sk = sq + kTile * pitch;
-  T* sv = sk + kTile * pitch;
+  const int hd = a.hd, pitch = Smem::pitch(hd), e = a.nh * hd;
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sk = sq + kTile * pitch;
+  float* sv = sk + kTile * pitch;
   float* sp = reinterpret_cast<float*>(sv + kTile * pitch);  // [64][65]
   float* smask = sp + kTile * kSPitch;                         // [64]
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
@@ -309,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   const int row0 = qt * kTile;
   const int ncol = hd / 16;
 
-  stage_rows(static_cast<const T*>(a.q) + (size_t)s * a.t * e, a.t, e, row0,
+  stage_rows(static_cast<const float*>(a.q) + (size_t)s * a.t * e, a.t, e, row0,
              h * hd, hd, sq, pitch);
   float m[4], l[4], o[4][kMaxCols];
 #pragma unroll
@@ -322,8 +323,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   const int n_walk = (a.p + kTile - 1) / kTile + qt + 1;
   for (int kt = 0; kt < n_walk; ++kt) {
     const KeyTile t = key_tile(a, s, kt);
-    const T* kp = static_cast<const T*>(t.prefix ? a.pk : a.k) + t.base;
-    const T* vp = static_cast<const T*>(t.prefix ? a.pv : a.v) + t.base;
+    const float* kp = static_cast<const float*>(t.prefix ? a.pk : a.k) + t.base;
+    const float* vp = static_cast<const float*>(t.prefix ? a.pv : a.v) + t.base;
     __syncthreads();  // the previous tile's sk, sv, sp are no longer read
     stage_rows(kp, t.n, e, t.col0, h * hd, hd, sk, pitch);
     stage_rows(vp, t.n, e, t.col0, h * hd, hd, sv, pitch);
@@ -333,7 +334,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
     }
     __syncthreads();
     float sc[4][4];
-    dot_tile<T>(sq, sk, pitch, hd, sc);
+    dot_tile(sq, sk, pitch, hd, sc);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = row0 + ty + 16 * i;
@@ -351,7 +352,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
       for (int j = 0; j < 4; ++j) {
         const float p = expf(sc[i][j] - m_new);
         ps += p;
-        sp[(ty + 16 * i) * kSPitch + tx + 16 * j] = round_to<T>(p);
+        sp[(ty + 16 * i) * kSPitch + tx + 16 * j] = p;
       }
       l[i] = alpha * l[i] + row_sum(ps);
       m[i] = m_new;
@@ -368,7 +369,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < kMaxCols; ++j) {
         if (j < ncol) {
-          const float y = to_float(sv[c * pitch + tx + 16 * j]);
+          const float y = sv[c * pitch + tx + 16 * j];
 #pragma unroll
           for (int i = 0; i < 4; ++i) o[i][j] = fmaf(x[i], y, o[i][j]);
         }
@@ -394,14 +395,13 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
 // backward: dq
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hd = a.hd, pitch = Smem<T>::pitch(hd), e = a.nh * hd;
-  T* sq = reinterpret_cast<T*>(smem);
-  T* sg = sq + kTile * pitch;
-  T* sk = sg + kTile * pitch;
-  T* sv = sk + kTile * pitch;
+  const int hd = a.hd, pitch = Smem::pitch(hd), e = a.nh * hd;
+  float* sq = reinterpret_cast<float*>(smem);
+  float* sg = sq + kTile * pitch;
+  float* sk = sg + kTile * pitch;
+  float* sv = sk + kTile * pitch;
   float* sds = reinterpret_cast<float*>(sv + kTile * pitch);  // [64][65]
   float* smask = sds + kTile * kSPitch;                         // [64]
   float* slse = smask + kTile;                                  // [64]
@@ -413,9 +413,9 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
   const int ncol = hd / 16;
   const size_t qbase = (size_t)s * a.t * e;
 
-  stage_rows(static_cast<const T*>(a.q) + qbase, a.t, e, row0, h * hd, hd,
+  stage_rows(static_cast<const float*>(a.q) + qbase, a.t, e, row0, h * hd, hd,
              sq, pitch);
-  stage_rows(static_cast<const T*>(a.g) + qbase, a.t, e, row0, h * hd, hd,
+  stage_rows(static_cast<const float*>(a.g) + qbase, a.t, e, row0, h * hd, hd,
              sg, pitch);
   if (threadIdx.x < kTile) {
     const int r = row0 + threadIdx.x;
@@ -432,8 +432,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
   const int n_walk = (a.p + kTile - 1) / kTile + qt + 1;
   for (int kt = 0; kt < n_walk; ++kt) {
     const KeyTile t = key_tile(a, s, kt);
-    const T* kp = static_cast<const T*>(t.prefix ? a.pk : a.k) + t.base;
-    const T* vp = static_cast<const T*>(t.prefix ? a.pv : a.v) + t.base;
+    const float* kp = static_cast<const float*>(t.prefix ? a.pk : a.k) + t.base;
+    const float* vp = static_cast<const float*>(t.prefix ? a.pv : a.v) + t.base;
     __syncthreads();  // the previous tile's sk, sv, sds are no longer read
     stage_rows(kp, t.n, e, t.col0, h * hd, hd, sk, pitch);
     stage_rows(vp, t.n, e, t.col0, h * hd, hd, sv, pitch);
@@ -443,8 +443,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
     }
     __syncthreads();
     float sc[4][4], dp[4][4];
-    dot_tile<T>(sq, sk, pitch, hd, sc);
-    dot_tile<T>(sg, sv, pitch, hd, dp);
+    dot_tile(sq, sk, pitch, hd, sc);
+    dot_tile(sg, sv, pitch, hd, dp);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int rl = ty + 16 * i, r = row0 + rl;
@@ -455,7 +455,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
                                      r);
         const float p = r < a.t ? expf(x - slse[rl]) : 0.0f;
         sds[rl * kSPitch + tx + 16 * j] =
-            round_to<T>(p * (dp[i][j] - sdelta[rl]) * a.scale);
+            p * (dp[i][j] - sdelta[rl]) * a.scale;
       }
     }
     __syncthreads();
@@ -468,7 +468,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
 #pragma unroll
       for (int j = 0; j < kMaxCols; ++j) {
         if (j < ncol) {
-          const float y = to_float(sk[c * pitch + tx + 16 * j]);
+          const float y = sk[c * pitch + tx + 16 * j];
 #pragma unroll
           for (int i = 0; i < 4; ++i) dq[i][j] = fmaf(x[i], y, dq[i][j]);
         }
@@ -490,14 +490,13 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
 // backward: dk / dv per branch
 // ---------------------------------------------------------------------------
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hd = a.hd, pitch = Smem<T>::pitch(hd), e = a.nh * hd;
-  T* sk = reinterpret_cast<T*>(smem);
-  T* sv = sk + kTile * pitch;
-  T* sq = sv + kTile * pitch;
-  T* sg = sq + kTile * pitch;
+  const int hd = a.hd, pitch = Smem::pitch(hd), e = a.nh * hd;
+  float* sk = reinterpret_cast<float*>(smem);
+  float* sv = sk + kTile * pitch;
+  float* sq = sv + kTile * pitch;
+  float* sg = sq + kTile * pitch;
   float* sp = reinterpret_cast<float*>(sg + kTile * pitch);  // [64][65]
   float* sds = sp + kTile * kSPitch;                           // [64][65]
   float* smask = sds + kTile * kSPitch;                        // [64]
@@ -515,8 +514,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
   const int col0 = kt * kTile;
   if (col0 >= n) return;
   const size_t kbase = (size_t)(prefix ? item : item - n_ep) * n * e;
-  const T* kp = static_cast<const T*>(prefix ? a.pk : a.k) + kbase;
-  const T* vp = static_cast<const T*>(prefix ? a.pv : a.v) + kbase;
+  const float* kp = static_cast<const float*>(prefix ? a.pk : a.k) + kbase;
+  const float* vp = static_cast<const float*>(prefix ? a.pv : a.v) + kbase;
   const float* mk = prefix ? a.pmask + (size_t)item * a.p
                            : a.kmask + (size_t)(item - n_ep) * a.t;
 
@@ -551,10 +550,10 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int row0 = qt * kTile;
       __syncthreads();  // the previous tile's sq, sg, sp, sds are read
-      stage_rows(static_cast<const T*>(a.q) + qbase, a.t, e, row0, h * hd, hd,
-                 sq, pitch);
-      stage_rows(static_cast<const T*>(a.g) + qbase, a.t, e, row0, h * hd, hd,
-                 sg, pitch);
+      stage_rows(static_cast<const float*>(a.q) + qbase, a.t, e, row0,
+                 h * hd, hd, sq, pitch);
+      stage_rows(static_cast<const float*>(a.g) + qbase, a.t, e, row0,
+                 h * hd, hd, sg, pitch);
       if (threadIdx.x < kTile) {
         const int r = row0 + threadIdx.x;
         const size_t at = ((size_t)s * a.nh + h) * a.t + r;
@@ -563,8 +562,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
       }
       __syncthreads();
       float sc[4][4], dp[4][4];
-      dot_tile<T>(sq, sk, pitch, hd, sc);
-      dot_tile<T>(sg, sv, pitch, hd, dp);
+      dot_tile(sq, sk, pitch, hd, sc);
+      dot_tile(sg, sv, pitch, hd, dp);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int rl = ty + 16 * i, r = row0 + rl;
@@ -574,9 +573,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
           const float x = masked_score(sc[i][j], a.scale, t, col0 + cl,
                                        smask[cl], r);
           const float p = r < a.t ? expf(x - slse[rl]) : 0.0f;
-          sp[rl * kSPitch + cl] = round_to<T>(p);
+          sp[rl * kSPitch + cl] = p;
           sds[rl * kSPitch + cl] =
-              round_to<T>(p * (dp[i][j] - sdelta[rl]) * a.scale);
+              p * (dp[i][j] - sdelta[rl]) * a.scale;
         }
       }
       __syncthreads();
@@ -592,8 +591,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
 #pragma unroll
         for (int j = 0; j < kMaxCols; ++j) {
           if (j < ncol) {
-            const float yg = to_float(sg[r * pitch + tx + 16 * j]);
-            const float yq = to_float(sq[r * pitch + tx + 16 * j]);
+            const float yg = sg[r * pitch + tx + 16 * j];
+            const float yq = sq[r * pitch + tx + 16 * j];
 #pragma unroll
             for (int i = 0; i < 4; ++i) {
               dv[i][j] = fmaf(xp[i], yg, dv[i][j]);
@@ -823,6 +822,419 @@ __global__ void __launch_bounds__(kTcThreads, 3) fwd_tc_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
+// bf16 backward on tensor cores (v2)
+// ---------------------------------------------------------------------------
+
+// A pass of the backward covers half a score tile: 32 keys of the key tile
+// (dq) or 32 rows of the query tile (dk/dv), so that a warp holds its two
+// 16 x 32 fp32 tiles (scores and g v^T) beside its fp32 accumulators.
+constexpr int kHalf = kTile / 2;
+constexpr int kHalfNf = kHalf / 8;  // n-fragments of a pass's tile
+
+// 64 rows from `first` of a token-major [n, E] bf16 sequence, the hd
+// columns from `col`, into dst (pitch hd + 8) by cp.async, 16 bytes a
+// thread at a time; rows past n are zero-filled.
+__device__ __forceinline__ void stage_tc(const __nv_bfloat16* seq, int n,
+                                         int first, int e, int col, int hd,
+                                         __nv_bfloat16* dst) {
+  const int per = hd / 8, pitch = hd + 8;  // 16-byte pieces per row
+  for (int x = threadIdx.x; x < kTile * per; x += kTcThreads) {
+    const int r = x / per, c = (x % per) * 8, row = first + r;
+    const bool ok = row < n;
+    mma::cp_async16(dst + r * pitch + c,
+                    seq + (size_t)(ok ? row : 0) * e + col + c, ok ? 16 : 0);
+  }
+}
+
+// Entry first + i of a length-n fp32 vector into dst[i] by cp.async; zero
+// past n.
+__device__ __forceinline__ void stage_vec(const float* src, int n, int first,
+                                          float* dst, int i) {
+  const bool ok = first + i < n;
+  mma::cp_async4(dst + i, src + (ok ? first + i : 0), ok ? 4 : 0);
+}
+
+// Key tile kt of song s's walk, head h, into one ring stage: the K and V
+// tiles, then the 64 key-mask floats (fwd_tc_stage's layout).  The forward
+// stages the same way with lambdas of its own: on an H100 these helpers
+// made it 7 % slower at the training path's query shape, while the
+// backward kernels ran as fast with them as with such lambdas.
+__device__ __forceinline__ void stage_key_tile(const Args& a, int s, int h,
+                                               int kt, unsigned char* stage) {
+  using bf16 = __nv_bfloat16;
+  const KeyTile t = key_tile(a, s, kt);
+  const int hd = a.hd, pitch = hd + 8, e = a.nh * hd;
+  bf16* sk = reinterpret_cast<bf16*>(stage);
+  bf16* sv = sk + kTile * pitch;
+  stage_tc(static_cast<const bf16*>(t.prefix ? a.pk : a.k) + t.base, t.n,
+           t.col0, e, h * hd, hd, sk);
+  stage_tc(static_cast<const bf16*>(t.prefix ? a.pv : a.v) + t.base, t.n,
+           t.col0, e, h * hd, hd, sv);
+  if (threadIdx.x < kTile)
+    stage_vec(t.mask, t.n, t.col0, reinterpret_cast<float*>(sv + kTile * pitch),
+              threadIdx.x);
+}
+
+// p = exp(s - lse) of one score entry (0 for a row past the sequence), s
+// masked as the forward masks it
+__device__ __forceinline__ float bwd_p(float dot, float scale,
+                                       const KeyTile& t, int c, float key_ok,
+                                       int r, int n_rows, float lse) {
+  return r < n_rows ? expf(masked_score(dot, scale, t, c, key_ok, r) - lse)
+                    : 0.0f;
+}
+
+// dq, FlashAttention-2 style on the forward's grid, walk and ring: a warp
+// keeps its 16 rows of q and g as A fragments; per key tile and pass it
+// forms s = q k^T and dp = g v^T (K, V read by ldmatrix), turns them into
+// ds = p (dp - delta) scale in registers and feeds bf16(ds) straight back
+// as the A fragment of dq += ds k (K read by ldmatrix.trans).  q and g are
+// staged in the second stage's K and V tiles before the walk starts.
+__global__ void __launch_bounds__(kTcThreads, 2) dq_tc_kernel(Args a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kMaxK = kMaxHd / 16;  // 16-deep slices of q k^T
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = a.hd, pitch = hd + 8, e = a.nh * hd;
+  const int nk = hd / 16;  // slices of q k^T; pairs of dq's n-fragments
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  unsigned char* stages = smem;
+  const size_t stage_bytes = fwd_tc_stage(hd);
+  bf16* sq = reinterpret_cast<bf16*>(stages + stage_bytes);  // stage 1
+  bf16* sg = sq + kTile * pitch;
+  const int n_qt = (a.t + kTile - 1) / kTile;
+  const int qt = blockIdx.x % n_qt, s = blockIdx.x / n_qt, h = blockIdx.y;
+  const int row0 = qt * kTile, wrow0 = row0 + 16 * warp;
+  const bool live = wrow0 < a.t;  // warp-uniform
+  const int n_walk = (a.p + kTile - 1) / kTile + qt + 1;
+  const size_t qbase = (size_t)s * a.t * e;
+
+  stage_tc(static_cast<const bf16*>(a.q) + qbase, a.t, row0, e, h * hd, hd,
+           sq);
+  stage_tc(static_cast<const bf16*>(a.g) + qbase, a.t, row0, e, h * hd, hd,
+           sg);
+  stage_key_tile(a, s, h, 0, stages);
+  mma::cp_async_commit();
+  mma::cp_async_wait<0>();
+  __syncthreads();
+  uint32_t qa[kMaxK][4], ga[kMaxK][4];  // the warp's q and g rows
+  if (live) {
+#pragma unroll
+    for (int kk = 0; kk < kMaxK; ++kk)
+      if (kk < nk) {
+        const int at = (16 * warp + mma::a_row(lane)) * pitch + 16 * kk +
+                       mma::a_col(lane);
+        mma::ldsm_x4(qa[kk], sq + at);
+        mma::ldsm_x4(ga[kk], sg + at);
+      }
+  }
+  __syncthreads();  // stage 1 is free for key tile 1
+  // this thread's rows g and g + 8 of the warp's 16, their lse and delta
+  const int rows[2] = {wrow0 + g, wrow0 + g + 8};
+  float lse[2], delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = rows[i] < a.t;
+    const size_t at = ((size_t)s * a.nh + h) * a.t + (ok ? rows[i] : 0);
+    lse[i] = ok ? a.lse[at] : 0.0f;
+    delta[i] = ok ? a.delta[at] : 0.0f;
+  }
+  float dq[kMaxHd / 8][4];
+#pragma unroll
+  for (int j = 0; j < kMaxHd / 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dq[j][x] = 0.0f;
+
+  for (int kt = 0; kt < n_walk; ++kt) {
+    const int slot = kt % kTcStages;
+    if (kt + 1 < n_walk) {
+      stage_key_tile(a, s, h, kt + 1,
+                     stages + (slot + 1) % kTcStages * stage_bytes);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();  // tile kt landed
+    const KeyTile t = key_tile(a, s, kt);
+    if (live) {
+      const bf16* sk =
+          reinterpret_cast<const bf16*>(stages + slot * stage_bytes);
+      const bf16* sv = sk + kTile * pitch;
+      const float* sm = reinterpret_cast<const float*>(sv + kTile * pitch);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int c0 = kHalf * half;  // the pass's first key in the tile
+        // keys all past the sequence, or all above the warp's diagonal
+        if (t.col0 + c0 >= t.n || (!t.prefix && t.col0 + c0 > wrow0 + 15))
+          continue;
+        // sc[j], dp[j]: q k^T and g v^T over keys c0 + 8 j .. c0 + 8 j + 7
+        float sc[kHalfNf][4], dp[kHalfNf][4];
+#pragma unroll
+        for (int j = 0; j < kHalfNf; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) sc[j][x] = dp[j][x] = 0.0f;
+        const int boff = (c0 + mma::bn_row(lane)) * pitch + mma::bn_col(lane);
+#pragma unroll
+        for (int kk = 0; kk < kMaxK; ++kk) {
+          if (kk < nk) {
+#pragma unroll
+            for (int jp = 0; jp < kHalfNf / 2; ++jp) {
+              uint32_t bfr[4];
+              mma::ldsm_x4(bfr, sk + boff + 16 * jp * pitch + 16 * kk);
+              mma::mma_bf16(sc[2 * jp], qa[kk], bfr[0], bfr[1]);
+              mma::mma_bf16(sc[2 * jp + 1], qa[kk], bfr[2], bfr[3]);
+              mma::ldsm_x4(bfr, sv + boff + 16 * jp * pitch + 16 * kk);
+              mma::mma_bf16(dp[2 * jp], ga[kk], bfr[0], bfr[1]);
+              mma::mma_bf16(dp[2 * jp + 1], ga[kk], bfr[2], bfr[3]);
+            }
+          }
+        }
+        // ds into dp (entry x of n-fragment j: row g + 8 (x / 2), key
+        // c0 + 8 j + 2 t4 + x % 2 of the tile)
+#pragma unroll
+        for (int j = 0; j < kHalfNf; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int cl = c0 + 8 * j + 2 * t4 + (x & 1), i = x / 2;
+            const float p = bwd_p(sc[j][x], a.scale, t, t.col0 + cl, sm[cl],
+                                  rows[i], a.t, lse[i]);
+            dp[j][x] = p * (dp[j][x] - delta[i]) * a.scale;
+          }
+        // dq += bf16(ds) k, 16 keys at a time
+#pragma unroll
+        for (int c = 0; c < kHalfNf / 2; ++c) {
+          uint32_t df[4];
+          mma::pack_a(df, dp[2 * c], dp[2 * c + 1]);
+          const bf16* kp = sk + (c0 + 16 * c + mma::bk_row(lane)) * pitch +
+                           mma::bk_col(lane);
+#pragma unroll
+          for (int np = 0; np < kMaxK; ++np) {
+            if (np < nk) {
+              uint32_t bfr[4];
+              mma::ldsm_x4_trans(bfr, kp + 16 * np);
+              mma::mma_bf16(dq[2 * np], df, bfr[0], bfr[1]);
+              mma::mma_bf16(dq[2 * np + 1], df, bfr[2], bfr[3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's prefetch overwrites this slot
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (rows[i] >= a.t) continue;
+    float* out = a.dq + qbase + (size_t)rows[i] * e + h * hd + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < kMaxHd / 8; ++j)
+      if (j < 2 * nk)
+        *reinterpret_cast<float2*>(out + 8 * j) =
+            make_float2(dq[j][2 * i], dq[j][2 * i + 1]);
+  }
+}
+
+// Shared memory of dkv_tc_kernel: the block's K and V tiles and 64 key-mask
+// floats, resident, then kTcStages stages of the Q and G tiles with their
+// 64 rows' lse and delta: 105 KB at hd = 128, two blocks an SM, as many as
+// the registers allow (dk and dv take 128 a thread at hd = 128).
+__host__ __device__ size_t dkv_tc_stage(int hd) {
+  return 2 * fwd_tc_tile(hd) + 2 * kTile * sizeof(float);
+}
+size_t dkv_tc_smem(int hd) {
+  return 2 * fwd_tc_tile(hd) + kTile * sizeof(float) +
+         kTcStages * dkv_tc_stage(hd);
+}
+
+// dk/dv on v1's grid: one block per (64-key tile, head, branch item), each
+// warp owning 16 keys, keys as the M dimension.  Per query tile of the walk
+// (v1's) and pass it forms s^T = k q^T and dp^T = v g^T (its K and V A
+// fragments read from the resident tiles by ldmatrix at each use: as
+// registers they would spill beside dk and dv), then p^T and ds^T in
+// registers, packed straight into the A fragments of dv += p^T g and
+// dk += ds^T q (G, Q read by ldmatrix.trans).  Q, G, lse and delta go
+// through a two-stage cp.async ring; dk and dv stay in fp32 registers for
+// the whole walk.
+__global__ void __launch_bounds__(kTcThreads, 2) dkv_tc_kernel(Args a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int kMaxK = kMaxHd / 16;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int hd = a.hd, pitch = hd + 8, e = a.nh * hd;
+  const int nk = hd / 16;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int n_qt = (a.t + kTile - 1) / kTile;
+  // blockIdx.y: items, first the B episodes' prefixes, then the S songs
+  const int n_ep = a.p > 0 ? a.songs / a.q_per_ep : 0;
+  const int item = blockIdx.y;
+  const bool prefix = item < n_ep;
+  const int n = prefix ? a.p : a.t;
+  const int kt = blockIdx.x, h = blockIdx.z;
+  const int col0 = kt * kTile, wk0 = col0 + 16 * warp;
+  if (col0 >= n) return;
+  const bool live = wk0 < n;  // warp-uniform
+  const size_t kbase = (size_t)(prefix ? item : item - n_ep) * n * e;
+  bf16* sk = reinterpret_cast<bf16*>(smem);
+  bf16* sv = sk + kTile * pitch;
+  float* sm = reinterpret_cast<float*>(sv + kTile * pitch);
+  unsigned char* stages = reinterpret_cast<unsigned char*>(sm + kTile);
+  const size_t stage_bytes = dkv_tc_stage(hd);
+  KeyTile t{};
+  t.prefix = prefix;
+  t.col0 = col0;
+  t.n = n;
+  // the walk: every query tile of the episode's Q songs (prefix), or the
+  // song's own tiles from the diagonal down (self)
+  const int s0 = prefix ? item * a.q_per_ep : item - n_ep;
+  const int qt0 = prefix ? 0 : kt;
+  const int per_song = n_qt - qt0;
+  const int n_walk = (prefix ? a.q_per_ep : 1) * per_song;
+
+  auto stage_queries = [&](int w, int slot) {
+    const int s = s0 + w / per_song, first = (qt0 + w % per_song) * kTile;
+    bf16* q_ = reinterpret_cast<bf16*>(stages + slot * stage_bytes);
+    bf16* g_ = q_ + kTile * pitch;
+    float* lse_ = reinterpret_cast<float*>(g_ + kTile * pitch);
+    const size_t qbase = (size_t)s * a.t * e;
+    const size_t at = ((size_t)s * a.nh + h) * a.t;
+    stage_tc(static_cast<const bf16*>(a.q) + qbase, a.t, first, e, h * hd, hd,
+             q_);
+    stage_tc(static_cast<const bf16*>(a.g) + qbase, a.t, first, e, h * hd, hd,
+             g_);
+    if (threadIdx.x < kTile)
+      stage_vec(a.lse + at, a.t, first, lse_, threadIdx.x);
+    else  // kTcThreads = 2 kTile
+      stage_vec(a.delta + at, a.t, first, lse_ + kTile, threadIdx.x - kTile);
+  };
+
+  stage_tc(static_cast<const bf16*>(prefix ? a.pk : a.k) + kbase, n, col0, e,
+           h * hd, hd, sk);
+  stage_tc(static_cast<const bf16*>(prefix ? a.pv : a.v) + kbase, n, col0, e,
+           h * hd, hd, sv);
+  if (threadIdx.x < kTile)
+    stage_vec(prefix ? a.pmask + (size_t)item * a.p
+                     : a.kmask + (size_t)(item - n_ep) * a.t,
+              n, col0, sm, threadIdx.x);
+  stage_queries(0, 0);
+  mma::cp_async_commit();
+  float dk[kMaxHd / 8][4], dv[kMaxHd / 8][4];
+#pragma unroll
+  for (int j = 0; j < kMaxHd / 8; ++j)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) dk[j][x] = dv[j][x] = 0.0f;
+  // this thread's keys g and g + 8 of the warp's 16, and their masks
+  const int keys[2] = {wk0 + g, wk0 + g + 8};
+  const int aoff = (16 * warp + mma::a_row(lane)) * pitch + mma::a_col(lane);
+
+  for (int w = 0; w < n_walk; ++w) {
+    const int slot = w % kTcStages;
+    if (w + 1 < n_walk) {
+      stage_queries(w + 1, (slot + 1) % kTcStages);
+      mma::cp_async_commit();
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();  // query tile w (and, at w = 0, K and V) landed
+    const int row0 = (qt0 + w % per_song) * kTile;
+    if (live) {
+      const bf16* sq =
+          reinterpret_cast<const bf16*>(stages + slot * stage_bytes);
+      const bf16* sg = sq + kTile * pitch;
+      const float* slse = reinterpret_cast<const float*>(sg + kTile * pitch);
+      const float* sdelta = slse + kTile;
+      const float key_ok[2] = {sm[keys[0] - col0], sm[keys[1] - col0]};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r0 = kHalf * half;  // the pass's first row in the tile
+        // rows all past the sequence, or all before the warp's first key
+        if (row0 + r0 >= a.t || (!prefix && row0 + r0 + kHalf - 1 < wk0))
+          continue;
+        // sc[j], dp[j]: k q^T and v g^T over rows r0 + 8 j .. r0 + 8 j + 7
+        float sc[kHalfNf][4], dp[kHalfNf][4];
+#pragma unroll
+        for (int j = 0; j < kHalfNf; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) sc[j][x] = dp[j][x] = 0.0f;
+        const int boff = (r0 + mma::bn_row(lane)) * pitch + mma::bn_col(lane);
+#pragma unroll
+        for (int kk = 0; kk < kMaxK; ++kk) {
+          if (kk < nk) {
+            uint32_t ka[4], va[4];
+            mma::ldsm_x4(ka, sk + aoff + 16 * kk);
+            mma::ldsm_x4(va, sv + aoff + 16 * kk);
+#pragma unroll
+            for (int jp = 0; jp < kHalfNf / 2; ++jp) {
+              uint32_t bfr[4];
+              mma::ldsm_x4(bfr, sq + boff + 16 * jp * pitch + 16 * kk);
+              mma::mma_bf16(sc[2 * jp], ka, bfr[0], bfr[1]);
+              mma::mma_bf16(sc[2 * jp + 1], ka, bfr[2], bfr[3]);
+              mma::ldsm_x4(bfr, sg + boff + 16 * jp * pitch + 16 * kk);
+              mma::mma_bf16(dp[2 * jp], va, bfr[0], bfr[1]);
+              mma::mma_bf16(dp[2 * jp + 1], va, bfr[2], bfr[3]);
+            }
+          }
+        }
+        // p^T into sc, ds^T into dp (entry x of n-fragment j: key
+        // g + 8 (x / 2) of the warp's, row r0 + 8 j + 2 t4 + x % 2 of the
+        // tile); the self branch's causal mask is the forward's transposed
+#pragma unroll
+        for (int j = 0; j < kHalfNf; ++j)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int rl = r0 + 8 * j + 2 * t4 + (x & 1), i = x / 2;
+            const float p = bwd_p(sc[j][x], a.scale, t, keys[i], key_ok[i],
+                                  row0 + rl, a.t, slse[rl]);
+            sc[j][x] = p;
+            dp[j][x] = p * (dp[j][x] - sdelta[rl]) * a.scale;
+          }
+        // dv += bf16(p)^T g, dk += bf16(ds)^T q, 16 rows at a time
+#pragma unroll
+        for (int c = 0; c < kHalfNf / 2; ++c) {
+          uint32_t pf[4], df[4];
+          mma::pack_a(pf, sc[2 * c], sc[2 * c + 1]);
+          mma::pack_a(df, dp[2 * c], dp[2 * c + 1]);
+          const int off = (r0 + 16 * c + mma::bk_row(lane)) * pitch +
+                          mma::bk_col(lane);
+#pragma unroll
+          for (int np = 0; np < kMaxK; ++np) {
+            if (np < nk) {
+              uint32_t bfr[4];
+              mma::ldsm_x4_trans(bfr, sg + off + 16 * np);
+              mma::mma_bf16(dv[2 * np], pf, bfr[0], bfr[1]);
+              mma::mma_bf16(dv[2 * np + 1], pf, bfr[2], bfr[3]);
+              mma::ldsm_x4_trans(bfr, sq + off + 16 * np);
+              mma::mma_bf16(dk[2 * np], df, bfr[0], bfr[1]);
+              mma::mma_bf16(dk[2 * np + 1], df, bfr[2], bfr[3]);
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the next iteration's prefetch overwrites this slot
+  }
+
+  if (!live) return;
+  float* dk_out = (prefix ? a.dpk : a.dk) + kbase + h * hd + 2 * t4;
+  float* dv_out = (prefix ? a.dpv : a.dv) + kbase + h * hd + 2 * t4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (keys[i] >= n) continue;
+    const size_t at = (size_t)keys[i] * e;
+#pragma unroll
+    for (int j = 0; j < kMaxHd / 8; ++j)
+      if (j < 2 * nk) {
+        *reinterpret_cast<float2*>(dk_out + at + 8 * j) =
+            make_float2(dk[j][2 * i], dk[j][2 * i + 1]);
+        *reinterpret_cast<float2*>(dv_out + at + 8 * j) =
+            make_float2(dv[j][2 * i], dv[j][2 * i + 1]);
+      }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launches
 // ---------------------------------------------------------------------------
 
@@ -848,9 +1260,8 @@ dim3 query_grid(const Args& a) {
   return dim3(((a.t + kTile - 1) / kTile) * a.songs, a.nh);
 }
 
-template <typename T>
 cudaError_t fwd(const Args& a, cudaStream_t st) {
-  return launch(fwd_kernel<T>, query_grid(a), Smem<T>::bytes(a.hd, 3, 1), a,
+  return launch(fwd_kernel, query_grid(a), Smem::bytes(a.hd, 3, 1), a,
                 st);
 }
 
@@ -859,18 +1270,31 @@ cudaError_t fwd_tc(const Args& a, cudaStream_t st) {
                 kTcThreads);
 }
 
-template <typename T>
 cudaError_t bwd_dq(const Args& a, cudaStream_t st) {
-  return launch(dq_kernel<T>, query_grid(a), Smem<T>::bytes(a.hd, 4, 1), a,
+  return launch(dq_kernel, query_grid(a), Smem::bytes(a.hd, 4, 1), a,
                 st);
 }
 
-template <typename T>
-cudaError_t bwd_dkv(const Args& a, cudaStream_t st) {
+cudaError_t bwd_dq_tc(const Args& a, cudaStream_t st) {
+  return launch(dq_tc_kernel, query_grid(a), fwd_tc_smem(a.hd), a, st,
+                kTcThreads);
+}
+
+// key tiles, items (the B episodes' prefixes, then the S songs), heads
+dim3 key_grid(const Args& a) {
   const int n_ep = a.p > 0 ? a.songs / a.q_per_ep : 0;
   const int kmax = a.p > a.t ? a.p : a.t;
-  const dim3 grid((kmax + kTile - 1) / kTile, n_ep + a.songs, a.nh);
-  return launch(dkv_kernel<T>, grid, Smem<T>::bytes(a.hd, 4, 2), a, st);
+  return dim3((kmax + kTile - 1) / kTile, n_ep + a.songs, a.nh);
+}
+
+cudaError_t bwd_dkv(const Args& a, cudaStream_t st) {
+  return launch(dkv_kernel, key_grid(a), Smem::bytes(a.hd, 4, 2), a,
+                st);
+}
+
+cudaError_t bwd_dkv_tc(const Args& a, cudaStream_t st) {
+  return launch(dkv_tc_kernel, key_grid(a), dkv_tc_smem(a.hd), a, st,
+                kTcThreads);
 }
 
 Args make_args(const void* q, const void* k, const void* v,
@@ -918,13 +1342,15 @@ extern "C" int prefix_attn_fwd(const void* q, const void* k, const void* v,
   if (bad_shape(a)) return cudaErrorInvalidValue;
   if (empty(a)) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return fwd<float>(a, st);
+  if (dtype == 0) return fwd(a, st);
   if (dtype == 1) return fwd_tc(a, st);
   return cudaErrorInvalidValue;
 }
 
 // The forward's inputs, the cotangent g [S, T, E] in the stream dtype, the
-// forward's lse and delta [S, nh, T] fp32.  Out: dq [S, T, E] fp32.
+// forward's lse and delta [S, nh, T] fp32.  Out: dq [S, T, E] fp32.  dtype 0
+// runs the v1 SIMT kernel, dtype 1 the tensor-core kernel (as does
+// prefix_attn_bwd_dkv).
 extern "C" int prefix_attn_bwd_dq(const void* q, const void* k, const void* v,
                                   const float* kmask, const void* pk,
                                   const void* pv, const float* pmask,
@@ -941,8 +1367,8 @@ extern "C" int prefix_attn_bwd_dq(const void* q, const void* k, const void* v,
   if (bad_shape(a)) return cudaErrorInvalidValue;
   if (empty(a)) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return bwd_dq<float>(a, st);
-  if (dtype == 1) return bwd_dq<__nv_bfloat16>(a, st);
+  if (dtype == 0) return bwd_dq(a, st);
+  if (dtype == 1) return bwd_dq_tc(a, st);
   return cudaErrorInvalidValue;
 }
 
@@ -969,7 +1395,7 @@ extern "C" int prefix_attn_bwd_dkv(const void* q, const void* k,
   if (bad_shape(a)) return cudaErrorInvalidValue;
   if (empty(a)) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return bwd_dkv<float>(a, st);
-  if (dtype == 1) return bwd_dkv<__nv_bfloat16>(a, st);
+  if (dtype == 0) return bwd_dkv(a, st);
+  if (dtype == 1) return bwd_dkv_tc(a, st);
   return cudaErrorInvalidValue;
 }

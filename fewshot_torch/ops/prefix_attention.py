@@ -17,6 +17,11 @@ songs (song s belongs to episode s // Q).
 * ``prefix_attn_bwd_dkv``: dk/dv of the self branch and, summed over the
   episode's songs, of the prefix.
 
+bf16 streams run the three on tensor cores (``fwd_tc_kernel``,
+``dq_tc_kernel``, ``dkv_tc_kernel``: ``mma.sync`` bf16 with fp32 sums);
+fp32 streams run the v1 kernels on the fp32 SIMT units.  Both backward
+kernels are deterministic: each block owns its outputs, with no atomics.
+
 Rounding points are the TPU kernels': operands in the stream dtype with fp32
 products; the unnormalised p rounded to the stream dtype before p v and
 divided by l afterwards; g, p and ds rounded before their backward

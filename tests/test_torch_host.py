@@ -8,7 +8,9 @@
   and no source of the port or of chip_smoke.py imports them;
 * a kernel library's name follows the bytes of its source and of the
   csrc/ headers it includes, so an edited header is rebuilt (no nvcc
-  needed: the name is computed before any build).
+  needed: the name is computed before any build);
+* the prefix-attention kernels' sources hold no atomic operation, so
+  their sums run in a fixed order.
 """
 
 import dataclasses
@@ -169,3 +171,19 @@ def test_library_name_follows_sources_and_headers(tmp_path, edited):
     f.write_bytes(f.read_bytes() + b"\n// edited\n")
     after = {n: _ext.library_path(n, csrc) for n in _ext.SIGNATURES}
     assert {n for n in after if after[n] != before[n]} == users
+
+
+_ATOMIC = re.compile(r"\batomic[A-Z]\w*\s*\(|\b(atom|red)\.[a-z]")
+
+
+def test_prefix_attention_sources_have_no_atomics():
+    """No atomicAdd (or other atomic, in C++ or PTX) outside comments in
+    prefix_attn.cu or the headers it includes: the dq and dk/dv kernels
+    each own their outputs and are deterministic."""
+    files = _ext.sources("prefix_attn")
+    assert [f.name for f in files] == ["prefix_attn.cu", "mma.cuh"]
+    for f in files:
+        code = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read_text(), flags=re.S)
+        assert not _ATOMIC.search(code), f
+    assert _ATOMIC.search("atomicAdd(dq + i, x);")
+    assert _ATOMIC.search('asm("red.global.add.f32 [%0], %1;")')
