@@ -3,25 +3,35 @@
 card.
 
 Run from the repository root:  python3 chip_smoke.py
+(python3 chip_smoke.py --lstm-split: only the one-off measurement of
+kernels 1-2 (both routes) and 3-4 launched eagerly against a CUDA graph,
+beside cuDNN; one JSON line.)
 
 Phases, each of which exits non-zero on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from fewshot_torch/ops/csrc (one nvcc per
      source, all started together; sm_90a), and count the tensor-core
-     (HMMA) instructions in the SASS of the four bf16 tensor-core kernels
-     (the head+CE backward, the prefix-attention forward, dq and dk/dv); a
-     kernel with none fails the run;
+     (HMMA) instructions in the SASS of the six bf16 tensor-core kernels
+     (the persistent LSTM forward and backward, the head+CE backward, the
+     prefix-attention forward, dq and dk/dv); a kernel with none, or one
+     that spills registers (ptxas -v), fails the run;
   3. each recurrence kernel against its plain PyTorch twin at full width
      (E=256, H=512, 2 layers; bf16 and fp32; ragged masks): the two
      forward kernels (and their train-mode gate activations) and the two
      backward kernels, with each kernel's time (CUDA events), its bound,
-     the twin's time and torch.nn.LSTM (cuDNN) timed at the same shape as
-     a yardstick only: its forward for the forward kernels, its backward
-     alone (the forward outside the timed window; forward and backward
-     as a second figure) for the backward kernels;
+     the twin's time and torch.nn.LSTM (cuDNN, its weights compacted,
+     three timings) at the same shape as a yardstick only: its forward for
+     the forward kernels, its backward alone (the forward outside the
+     timed window; forward and backward as a second figure) for the
+     backward kernels; for the per-layer pair in bf16 (the persistent
+     kernels) also the int8-gates mode (codes within one step of the
+     twin's), the same state in both gates modes, the same bits from a
+     second launch, the step kernels (v1) timed on the same inputs, and
+     the clusters the card runs at once;
   4. serving phase A, the bench config (support_mode=mean_state, batch 32,
      the per-layer kernel): an HTTP server answers concurrent /generate
-     requests; the per-layer kernel's launch count must rise;
+     requests; the per-layer kernel's launch count must rise, all on its
+     persistent route;
   5. serving phase B, the shipped config (support_mode=state, batch 16,
      the fused-stack kernel); the fused kernel's launch count must rise;
   6. training phase A, the bench config as bench.py trains it (B=32, 10
@@ -29,7 +39,9 @@ Phases, each of which exits non-zero on failure:
      loss of the first step and of the first and last calls (finite; the
      last call's below the first step's), one step's device idle share,
      one step's grads against the plain route; the per-layer forward and
-     backward kernels' launch counts must rise;
+     backward kernels must launch 4 times a step each, on their
+     persistent route; then training A-int8, the same with the int8-gates
+     branch (FEWSHOT_LSTM_GATES_INT8) for 3 calls;
   7. training phase B, the shipped config (support_mode=state, B=16): the
      fused-stack forward and backward kernels' counts must rise;
   8. the V=5000 synthetic lyrics corpus, then the fused head+CE forward
@@ -43,8 +55,9 @@ Phases, each of which exits non-zero on failure:
   9. training phase C, the V=5000 neural-cache stack
      (scripts/scale_quality.py's plain_cache_full_floor leg: mean_state,
      B=32, global backoff, calibration, dynamic cache, responsibility floor
-     0.25) on that corpus, as A: the per-layer kernels and the fused
-     head+CE kernels' counts must rise; one step's grads, the cache
+     0.25) on that corpus, as A: the per-layer kernels (4 a step each and
+     4 forwards per evaluation batch, on the persistent route) and the
+     fused head+CE kernels' counts must rise; one step's grads, the cache
      parameters' included, against the plain route (the dense head); the
      validation NLL (512 episodes) before and after training, which must
      fall, with the head+CE forward counted and the backward idle during
@@ -105,6 +118,10 @@ PEAK_BYTES = 3.35e12                                           # HBM3, B/s
 # lands on the other side of a rounding tie; fp32 only in summation order
 FWD_TOL = {torch.float32: [1e-4] * 4, torch.bfloat16: [3e-2, 3e-2, 2e-2, 2e-2]}
 GATES_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# int8-coded gates (FEWSHOT_LSTM_GATES_INT8) against the twin's codes: one
+# code step, where an activation that differs in its last bits rounds to
+# the neighbouring code
+GATES_INT8_TOL = 1.0
 # backward kernels against their twins, relative to each output's largest
 # magnitude (dzx, dh0, dc0, db): the same rounding points on both sides; a
 # bf16 tie flipped by the order of an fp32 sum moves one dz by 2^-8 and the
@@ -147,6 +164,7 @@ ATTN_LSE_TOL = 1e-4
 ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 EVAL_EPISODES = 512
 KERNEL_REPS, PLAIN_REPS = 20, 3
+YARD_TIMINGS = 3         # timings of each cuDNN yardstick (their spread)
 ROUNDS = 3              # rounds of 7 requests per serving phase
 TRAIN_WARMUP, TRAIN_CALLS = 2, 4    # calls of steps_per_call steps
 
@@ -239,18 +257,20 @@ def ragged_mask(gen, steps: int, rows: int, songs: int) -> torch.Tensor:
     return live.reshape(rows, steps).T[..., None].float().contiguous()
 
 
-def cudnn_lstm_ms(wh, b, steps, rows, in_dim, layers, dtype,
-                  backward=False):
-    """torch.nn.LSTM (cuDNN) at the same shape: the yardstick only; with
-    backward, (its backward alone, its forward and backward together), the
-    backward giving the input and weight grads of a forward run once
-    outside the timed window.
+def cudnn_lstm(wh, b, in_dim, layers, dtype):
+    """torch.nn.LSTM (cuDNN) holding the kernels' Wh and bias, built on the
+    card in dtype: the yardstick only.
 
     Gates permuted from (i, j, f, o) to PyTorch's (i, f, g, o), forget bias
-    folded into bias_ih.  It also projects its input (the kernels take
-    that projection precomputed) and has no mask."""
-    dev = wh.device
-    lstm = torch.nn.LSTM(in_dim, H, num_layers=layers).to(dev, dtype)
+    folded into bias_ih.  It also projects its input (the kernels take that
+    projection precomputed) and has no mask.  Its weights are compacted into
+    cuDNN's one buffer after the copies: flatten_parameters() skips that in
+    bf16 (torch.backends.cudnn.is_acceptable admits fp16/32/64 only), and
+    an uncompacted module copies its weights into a new buffer at every
+    call (PyTorch warns so), which moved the bf16 timings up to 1.6x."""
+    import torch.backends.cudnn.rnn as cudnn_rnn
+    lstm = torch.nn.LSTM(in_dim, H, num_layers=layers, device=wh.device,
+                         dtype=dtype)
     perm = torch.cat([torch.arange(0, H), torch.arange(2 * H, 3 * H),
                       torch.arange(H, 2 * H), torch.arange(3 * H, 4 * H)])
     bias = b.float().clone()
@@ -262,18 +282,59 @@ def cudnn_lstm_ms(wh, b, steps, rows, in_dim, layers, dtype,
             getattr(lstm, f"weight_hh_l{l}").copy_(w[:, perm].T)
             getattr(lstm, f"bias_ih_l{l}").copy_(bl[perm])
             getattr(lstm, f"bias_hh_l{l}").zero_()
-    lstm.flatten_parameters()
-    x = torch.randn(steps, rows, in_dim, device=dev, dtype=dtype,
+        torch._cudnn_rnn_flatten_weight(
+            lstm._flat_weights, 4, in_dim, cudnn_rnn.get_cudnn_mode("LSTM"),
+            H, 0, layers, False, False)
+    return lstm
+
+
+def cudnn_lstm_ms(wh, b, steps, rows, in_dim, layers, dtype,
+                  backward=False) -> dict:
+    """torch.nn.LSTM (cuDNN) at the kernels' shape, timed YARD_TIMINGS
+    times after a warm-up: {"ms": the median, "runs": every timing,
+    "busy_ms": the median of YARD_TIMINGS profiles of one call's kernel
+    time, which no gap between its kernels enters (the calls are
+    host-bound: their launches take longer than their kernels), its
+    "busy_runs", "top_kernels": its largest kernels, and the host's wall
+    time of one call}; with backward, "ms" is its backward alone (the
+    input and weight grads of a forward run once outside the timed window)
+    and "fwd_bwd_ms" the median of forward and backward together.  Fails if
+    PyTorch warns that the weights are not compacted."""
+    import warnings
+    lstm = cudnn_lstm(wh, b, in_dim, layers, dtype)
+    x = torch.randn(steps, rows, in_dim, device=wh.device, dtype=dtype,
                     requires_grad=backward)
-    try:
-        if not backward:
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if backward:
+            leaves = [x, *lstm.parameters()]
+            runs = [backward_ms(lambda: (lstm(x)[0],), leaves)
+                    for _ in range(YARD_TIMINGS)]
+            outs = (lstm(x)[0],)
+            cot = (torch.ones_like(outs[0]),)
+            busy = [device_busy_ms(
+                lambda: torch.autograd.grad(outs, leaves, cot,
+                                            retain_graph=True), top=4)
+                for _ in range(YARD_TIMINGS)]
+            out = {"ms": statistics.median(r[0] for r in runs),
+                   "fwd_bwd_ms": statistics.median(r[1] for r in runs),
+                   "runs": runs}
+        else:
             with torch.no_grad():
-                return cuda_ms(lambda: lstm(x), KERNEL_REPS)
-        leaves = [x, *lstm.parameters()]
-        return backward_ms(lambda: (lstm(x)[0],), leaves)
-    except RuntimeError as e:            # no cuDNN LSTM for this dtype
-        log(f"  cudnn yardstick unavailable for {dtype}: {e}")
-        return None
+                runs = [cuda_ms(lambda: lstm(x), KERNEL_REPS)
+                        for _ in range(YARD_TIMINGS)]
+                busy = [device_busy_ms(lambda: lstm(x), top=4)
+                        for _ in range(YARD_TIMINGS)]
+                out = {"ms": statistics.median(runs), "runs": runs,
+                       "host_ms": host_ms(lambda: lstm(x))}
+        out.update(busy_ms=statistics.median(b[0] or 0.0 for b in busy),
+                   busy_runs=[b[0] for b in busy], top_kernels=busy[-1][1])
+    compacted = [str(w.message) for w in caught
+                 if "contiguous chunk" in str(w.message)]
+    if compacted:
+        raise RuntimeError(f"cuDNN yardstick {dtype}: weights not "
+                           f"compacted: {compacted[0]}")
+    return out
 
 
 def backward_ms(forward, leaves, cot=None) -> tuple[float, float]:
@@ -328,8 +389,13 @@ def check_kernel(name, wrapper, plain, args, tols, relative, ops, dtype,
                    if isinstance(a, torch.Tensor))
     out_bytes = sum(g.numel() * g.element_size() for g in got)
     bound_ms, bound_by = bound(in_bytes + out_bytes, ops, dtype)
-    lib = library()                      # a backward's: (alone, fwd + bwd)
-    lib_ms, lib_both = lib if isinstance(lib, tuple) else (lib, None)
+    # ms; a backward's (alone, fwd + bwd); or cudnn_lstm_ms's dict
+    lib = library()
+    lib_runs = lib.get("runs") if isinstance(lib, dict) else None
+    if isinstance(lib, dict):
+        lib_ms, lib_both = lib["ms"], lib.get("fwd_bwd_ms")
+    else:
+        lib_ms, lib_both = lib if isinstance(lib, tuple) else (lib, None)
     rec = {"name": name, "dtype": str(dtype).replace("torch.", ""),
            "shape": list(args[0].shape),
            "max_abs_err": max(e[0] for e in errs),
@@ -340,6 +406,10 @@ def check_kernel(name, wrapper, plain, args, tols, relative, ops, dtype,
            "library_ms": lib_ms}
     if lib_both is not None:
         rec["library_fwd_bwd_ms"] = lib_both
+    if lib_runs is not None:
+        rec["library_runs"] = lib_runs
+        rec["library_busy_ms"] = lib["busy_ms"]
+        rec["library_busy_runs"] = lib["busy_runs"]
     log(f"  {name} {rec['dtype']}: errors {checked} (tol {tols}, "
         f"{'relative' if relative else 'absolute'}) parity={ok} kernel "
         f"{ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms "
@@ -363,6 +433,66 @@ def gates_err(name, wrapper, plain, args, dtype) -> float:
     if not err <= GATES_TOL[dtype]:
         raise RuntimeError(f"{name} {dtype} gates disagree: {err}")
     return err
+
+
+def same_bits(fn) -> bool:
+    """Two calls of fn() on the same inputs give the same bits."""
+    with torch.no_grad():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+    return all(torch.equal(x, y) for x, y in zip(first, second))
+
+
+def layer_persist_checks(args, bargs, ops, dtype, lead) -> dict:
+    """Kernels 1-2 on their persistent route (bf16 at training A's shape),
+    beyond check_kernel: the int8 gates mode, timed and held against the
+    twin's codes (GATES_INT8_TOL) and, in the backward, against the twin on
+    the same codes; the same state in both gates modes; the same bits from
+    a second launch; the step kernels (v1) on the same inputs, timed beside
+    it; and how many clusters the card runs at once (into `lead`, the
+    forward's record).  Returns records keyed as kernel_phase's."""
+    from functools import partial
+    from fewshot_torch.ops import _ext, lstm_layer as ll
+    none = lambda: None                                          # noqa
+    coded_kw = {"save_gates": True, "gates_dtype": torch.int8}
+    recs = {("layer_int8", dtype): check_kernel(
+        "lstm_layer_fwd", ll.lstm_layer_fwd, ll.lstm_layer_fwd_plain, args,
+        FWD_TOL[dtype] + [GATES_INT8_TOL], False, ops, dtype, none,
+        kw=coded_kw)}
+    with torch.no_grad():
+        coded = ll.lstm_layer_fwd(*args, **coded_kw)
+        stream_gates = ll.lstm_layer_fwd(*args, save_gates=True)
+    bargs8 = (coded[4], bargs[1], bargs[2], coded[1]) + bargs[4:]
+    recs[("layer_bwd_int8", dtype)] = check_kernel(
+        "lstm_layer_bwd", ll.lstm_layer_bwd, ll.lstm_layer_bwd_plain, bargs8,
+        [BWD_TOL[dtype]] * 4, True, ops, dtype, none)
+    checks = {
+        "state_same_in_both_gates_modes": all(
+            torch.equal(x, y) for x, y in zip(coded[:4], stream_gates[:4])),
+        "fwd_deterministic": same_bits(
+            lambda: ll.lstm_layer_fwd(*args, save_gates=True)),
+        "fwd_int8_deterministic": same_bits(
+            lambda: ll.lstm_layer_fwd(*args, **coded_kw)),
+        "bwd_deterministic": same_bits(lambda: ll.lstm_layer_bwd(*bargs)),
+        "bwd_int8_deterministic": same_bits(
+            lambda: ll.lstm_layer_bwd(*bargs8))}
+    log(f"  persistent route {dtype}: {checks}")
+    if not all(checks.values()):
+        raise RuntimeError(f"persistent LSTM kernels {dtype}: {checks}")
+    recs[("layer_v1", dtype)] = check_kernel(
+        "lstm_layer_fwd (step kernels)",
+        partial(ll.lstm_layer_fwd, route="step"), ll.lstm_layer_fwd_plain,
+        args, FWD_TOL[dtype], False, ops, dtype, none)
+    recs[("layer_bwd_v1", dtype)] = check_kernel(
+        "lstm_layer_bwd (step kernels)",
+        partial(ll.lstm_layer_bwd, route="step"), ll.lstm_layer_bwd_plain,
+        bargs, [BWD_TOL[dtype]] * 4, True, ops, dtype, none)
+    clusters = {"fwd": _ext.load("lstm_fwd").lstm_fwd_persist_clusters(H),
+                "bwd": _ext.load("lstm_bwd").lstm_bwd_persist_clusters(H)}
+    log(f"  persistent route: clusters of {H // 32} blocks the card runs at "
+        f"once {clusters}")
+    lead.update(checks, max_active_clusters=clusters)
+    return recs
 
 
 def kernel_phase(dev) -> dict:
@@ -406,6 +536,14 @@ def kernel_phase(dev) -> dict:
             True, 2.0 * live * H * 4 * H, dtype,
             lambda: cudnn_lstm_ms(args[1], args[2], t_, rows, H, 1, dtype,
                                   backward=True))
+        route = "persistent" if lstm_layer.persistent_route(
+            rows, H, dtype) else "step"
+        for key in ("layer", "layer_bwd"):
+            records[(key, dtype)]["route"] = route
+        if route == "persistent":
+            records.update(layer_persist_checks(
+                args, bargs, 2.0 * live * H * 4 * H, dtype,
+                records[("layer", dtype)]))
         # kernels 3 and 4: state support pass, 16 episodes x 5 songs x L=96
         t_, rows = 480, 16
         mask = ragged_mask(gen, t_, rows, 5).to(dev)
@@ -441,6 +579,108 @@ def kernel_phase(dev) -> dict:
             lambda: cudnn_lstm_ms(args[2], args[3], t_, rows, E, LAYERS,
                                   dtype, backward=True))
     return records
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device time of one replay of a CUDA graph that holds the launches of
+    one fn() call, by cuda_ms (fn runs once before the capture)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    torch.cuda.synchronize()
+    return cuda_ms(graph.replay, reps)
+
+
+def lstm_launch_split(dev) -> dict:
+    """Kernels 1-2 at training A's shape (160 rows x 96 steps, H=512,
+    bf16, ragged mask) on each route: launched eagerly and replayed from a
+    CUDA graph, both by cuda_ms, so that the difference is what the
+    launches themselves cost on the card; the host's wall time of one call
+    (host_ms); and cuDNN's yardstick, three timings each.  A one-off
+    measurement (--lstm-split), not a phase of the default run."""
+    from fewshot_torch.ops import lstm_layer
+    gen = torch.Generator().manual_seed(0)
+    dtype, t_, rows = torch.bfloat16, 96, 160
+    lim = (6.0 / (5 * H)) ** 0.5
+    mask = ragged_mask(gen, t_, rows, 1).to(dev)
+    zx = (torch.randn((t_, rows, 4 * H), generator=gen) * 0.6).to(dev, dtype)
+    wh = ((torch.rand((H, 4 * H), generator=gen) * 2 - 1) * lim).to(dev,
+                                                                   dtype)
+    b = (torch.randn(4 * H, generator=gen) * 0.1).to(dev)
+    h0, c0 = ((torch.randn((rows, H), generator=gen) * 0.5).to(dev)
+              for _ in range(2))
+    dys = torch.randn((t_, rows, H), generator=gen).to(dev, dtype)
+    dhT, dcT = (torch.randn((rows, H), generator=gen).to(dev)
+                for _ in range(2))
+    out = {"shape": [t_, rows, H], "dtype": "bfloat16"}
+    with torch.no_grad():
+        for route in lstm_layer.ROUTES:
+            def fwd(r=route):
+                return lstm_layer.lstm_layer_fwd(zx, wh, b, mask, h0, c0,
+                                                 save_gates=True, route=r)
+            _, cs, _, _, gates = fwd()
+
+            def bwd(r=route, g=gates, c=cs):
+                return lstm_layer.lstm_layer_bwd(g, wh, mask, c, c0, dys,
+                                                 dhT, dcT, route=r)
+            rec = {}
+            for name, fn, launches in (("fwd", fwd, t_), ("bwd", bwd,
+                                                          t_ + 1)):
+                eager, graph = cuda_ms(fn, KERNEL_REPS), graph_ms(fn,
+                                                                  KERNEL_REPS)
+                rec[name] = {"eager_ms": eager, "graph_ms": graph,
+                             "host_ms": host_ms(fn)}
+                if route == "step":
+                    rec[name]["step_launches"] = launches
+                    rec[name]["launch_share_us_per_launch"] = \
+                        (eager - graph) * 1e3 / launches
+            out[route] = rec
+    out["cudnn"] = {
+        "fwd": cudnn_lstm_ms(wh, b, t_, rows, H, 1, dtype),
+        "bwd": cudnn_lstm_ms(wh, b, t_, rows, H, 1, dtype, backward=True)}
+    out["stack"] = stack_launch_split(dev, gen)
+    return out
+
+
+def stack_launch_split(dev, gen) -> dict:
+    """Kernels 3-4 at training B's shape (16 rows x 480 steps, 2 layers,
+    H=512, bf16), as lstm_launch_split: eagerly and from a CUDA graph, the
+    host's wall time, and cuDNN's yardstick (2 layers, input width E)."""
+    from fewshot_torch.ops import lstm_stack
+    dtype, t_, rows = torch.bfloat16, 480, 16
+    lim = (6.0 / (5 * H)) ** 0.5
+    mask = ragged_mask(gen, t_, rows, 5).to(dev)
+
+    def unif(*shape):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * lim).to(dev,
+                                                                    dtype)
+    zx = (torch.randn((t_, rows, 4 * H), generator=gen) * 0.6).to(dev, dtype)
+    wx, wh = unif(LAYERS - 1, H, 4 * H), unif(LAYERS, H, 4 * H)
+    b = (torch.randn((LAYERS, 4 * H), generator=gen) * 0.1).to(dev)
+    h0, c0, dhT, dcT = ((torch.randn((LAYERS, rows, H), generator=gen)
+                         * 0.5).to(dev) for _ in range(4))
+    dys = torch.randn((t_, rows, H), generator=gen).to(dev, dtype)
+    out = {"shape": [LAYERS, t_, rows, H], "dtype": "bfloat16"}
+    with torch.no_grad():
+        def fwd():
+            return lstm_stack.lstm_stack_fwd(zx, wx, wh, b, mask, h0, c0,
+                                             save_gates=True)
+        _, cs, _, _, gates = fwd()
+
+        def bwd():
+            return lstm_stack.lstm_stack_bwd(gates, wx, wh, mask, cs, c0,
+                                             dys, dhT, dcT)
+        for name, fn in (("fwd", fwd), ("bwd", bwd)):
+            out[name] = {"eager_ms": cuda_ms(fn, KERNEL_REPS),
+                         "graph_ms": graph_ms(fn, KERNEL_REPS),
+                         "host_ms": host_ms(fn)}
+    out["cudnn"] = {
+        "fwd": cudnn_lstm_ms(wh, b, t_, rows, E, LAYERS, dtype),
+        "bwd": cudnn_lstm_ms(wh, b, t_, rows, E, LAYERS, dtype,
+                             backward=True)}
+    return out
 
 
 def head_library_ms(h2, w, b, t, cot=None):
@@ -494,9 +734,7 @@ def head_kernel_phase(dev, rows: int, vocab: int) -> dict:
             [HEAD_BWD_TOL[dtype]] * 3, True, 3 * products, dtype,
             lambda: head_library_ms(h2, w, b, t, (dlse, dtl)))
         # two launches on the same inputs: the same bits
-        with torch.no_grad():
-            same = all(torch.equal(x, y) for x, y in zip(
-                head_ce.head_ce_bwd(*bargs), head_ce.head_ce_bwd(*bargs)))
+        same = same_bits(lambda: head_ce.head_ce_bwd(*bargs))
         records[("head_bwd", dtype)]["deterministic"] = same
         log(f"  head_ce_bwd {dtype}: two launches bit-identical: {same}")
         if not same:
@@ -602,9 +840,7 @@ def attn_kernel_phase(dev, shapes) -> dict:
             # two launches on the same inputs: the same bits
             for key, fn in (("dq", lambda: (pa.prefix_attn_bwd_dq(*bargs),)),
                             ("dkv", lambda: pa.prefix_attn_bwd_dkv(*bargs))):
-                with torch.no_grad():
-                    same = all(torch.equal(x, y)
-                               for x, y in zip(fn(), fn()))
+                same = same_bits(fn)
                 records[(f"attn_{key}_{label}", dtype)]["deterministic"] = \
                     same
                 log(f"  prefix_attn_bwd_{key} {label} {dtype}: two launches "
@@ -653,7 +889,7 @@ def post(url: str, payload: dict) -> tuple[int, dict, float]:
         return resp.status, body, time.perf_counter() - t0
 
 
-def serving_phase(label, cfg, corpus, dev, counter) -> dict:
+def serving_phase(label, cfg, corpus, dev, counter, persistent=()) -> dict:
     from fewshot_torch.models import lm
     from fewshot_torch.serve import Generator, serve
 
@@ -695,6 +931,7 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
         srv.shutdown()
         srv.server_close()
     launches = {n: fn.launches for n, fn in kernel_counters.items()}
+    routes = route_counts(kernel_counters, persistent, label)
 
     tokens = 0
     for payload, (status, body, _) in zip(payloads, results):
@@ -763,7 +1000,7 @@ def serving_phase(label, cfg, corpus, dev, counter) -> dict:
            "max_latency_s": lat[-1], "generated_tokens": tokens,
            "wall_s": wall, "tokens_per_s": tokens / wall,
            "warmup_s": gen.warm_s, "launches": launches,
-           "launches_per_batch": per_batch,
+           "route_launches": routes, "launches_per_batch": per_batch,
            "support_pass_err_vs_plain": state_err,
            "batch_support_ms": support_ms, "batch_generate_ms": generate_ms,
            "batch_device_busy_ms": busy_ms,
@@ -796,7 +1033,22 @@ def reset_counts() -> dict:
     kernel_counters = counters()
     for fn in kernel_counters.values():
         fn.launches = 0
+        if hasattr(fn, "route_launches"):
+            fn.route_launches = dict.fromkeys(fn.route_launches, 0)
     return kernel_counters
+
+
+def route_counts(kernel_counters, persistent=(), label="") -> dict:
+    """{wrapper: {route: launches}} of the wrappers that have two routes;
+    every wrapper named in `persistent` must have launched its persistent
+    kernel, and only that."""
+    routes = {n: dict(fn.route_launches) for n, fn in kernel_counters.items()
+              if hasattr(fn, "route_launches")}
+    for n in persistent:
+        if routes[n]["step"] or not routes[n]["persistent"]:
+            raise RuntimeError(f"{label}: {n} did not run the persistent "
+                               f"kernel only: {routes[n]}")
+    return routes
 
 
 def plain_route(cfg):
@@ -828,7 +1080,7 @@ def grad_check(cfg, params, ep) -> dict:
     return {k: max_rel(fast[k], slow[k])[1] for k in slow}
 
 
-def eval_phase(label, cfg, params, data, corpus, dev) -> dict:
+def eval_phase(label, cfg, params, data, corpus, dev, persistent=()) -> dict:
     """The validation NLL (EVAL_EPISODES episodes of the val split, the
     same episodes every call) through training.evaluate, with the launches
     it made and its host time."""
@@ -843,20 +1095,24 @@ def eval_phase(label, cfg, params, data, corpus, dev) -> dict:
                             num_episodes=EVAL_EPISODES)
     wall = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in kernel_counters.items()}
+    routes = route_counts(kernel_counters, persistent, label)
     if not np.isfinite(nll):
         raise RuntimeError(f"{label}: val NLL not finite: {nll}")
     return {"nll": nll, "wall_s": wall, "launches": launches,
+            "route_launches": routes,
             "batches": EVAL_EPISODES // cfg.batch_size}
 
 
 def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False,
-                   per_step=None, per_eval_batch=None) -> dict:
+                   per_step=None, per_eval_batch=None, persistent=(),
+                   warmup=TRAIN_WARMUP, calls=TRAIN_CALLS) -> dict:
     """The train step at cfg, dispatched steps_per_call steps per call as
-    bench.py does: 2 warm-up calls, then 4 timed calls.  evaluate: also the
-    val NLL before and after training (it must fall; the head+CE forward
-    must launch and no backward kernel may) and the unigram floor.
-    per_step / per_eval_batch: {kernel: launches} the counters must show
-    exactly."""
+    bench.py does: `warmup` warm-up calls, then `calls` timed calls.
+    evaluate: also the val NLL before and after training (it must fall; the
+    head+CE forward must launch and no backward kernel may) and the unigram
+    floor.  per_step / per_eval_batch: {kernel: launches} the counters must
+    show exactly; persistent: wrappers that must launch their persistent
+    kernel only (in training and evaluation)."""
     from fewshot_torch import training
     from fewshot_torch.data import episodes as eps
 
@@ -864,8 +1120,10 @@ def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False,
     split = torch.as_tensor(np.asarray(corpus.splits["train"]),
                             dtype=torch.int64, device=dev)
     state = training.init_train_state(cfg, len(corpus.vocab), device=dev)
+    eval_persistent = [n for n in persistent if not n.endswith("_bwd")]
     if evaluate:
-        val_init = eval_phase(label, cfg, state.params, data, corpus, dev)
+        val_init = eval_phase(label, cfg, state.params, data, corpus, dev,
+                              eval_persistent)
     one_step = training.make_train_step(cfg, data, split)
     step = training.make_multi_step(one_step, cfg.steps_per_call)
     # the first warm-up call runs as its single steps (the same trajectory,
@@ -875,19 +1133,20 @@ def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False,
         if i == 0:
             first_step = float(m["loss"])
     losses = [float(m["loss"])]
-    for _ in range(TRAIN_WARMUP - 1):
+    for _ in range(warmup - 1):
         state, m = step(state)
         losses.append(float(m["loss"]))
     torch.cuda.synchronize()
     kernel_counters = reset_counts()
     t0 = time.perf_counter()
-    for _ in range(TRAIN_CALLS):
+    for _ in range(calls):
         state, m = step(state)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {n: fn.launches for n, fn in kernel_counters.items()}
+    routes = route_counts(kernel_counters, persistent, label)
     losses.append(float(m["loss"]))
-    steps = TRAIN_CALLS * cfg.steps_per_call
+    steps = calls * cfg.steps_per_call
     if not np.isfinite(losses + [first_step]).all() \
             or not losses[-1] < first_step:
         raise RuntimeError(f"{label}: loss not finite and falling: "
@@ -926,12 +1185,13 @@ def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False,
            "step_device_top_kernels": top,
            "loss_first_step": first_step, "loss_first_call": losses[0],
            "loss_last_call": losses[-1],
-           "launches": launches,
+           "launches": launches, "route_launches": routes,
            "launches_per_step": {n: v / steps for n, v in launches.items()},
            "grad_rel_err_vs_plain": grad_err, "grad_tol": GRAD_TOL}
     if evaluate:
         from fewshot_torch.models import unigram
-        val_end = eval_phase(label, cfg, state.params, data, corpus, dev)
+        val_end = eval_phase(label, cfg, state.params, data, corpus, dev,
+                             eval_persistent)
         fwd = val_end["launches"]["head_ce_fwd"]
         bwd = sum(v for n, v in val_end["launches"].items() if "bwd" in n)
         exact = all(val_end["launches"][n] == want * val_end["batches"]
@@ -951,10 +1211,36 @@ def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False,
                     "eval_episodes": EVAL_EPISODES,
                     "eval_wall_s": val_end["wall_s"],
                     "eval_launches": val_end["launches"],
+                    "eval_route_launches": val_end["route_launches"],
                     "launches_per_eval_batch": {
                         n: v / val_end["batches"]
                         for n, v in val_end["launches"].items()}})
     log(f"{label}: {json.dumps(rec)}")
+    return rec
+
+
+def int8_phase(cfg, corpus, dev, layer_pair, layer_step) -> dict:
+    """Training A with the int8-gates branch (FEWSHOT_LSTM_GATES_INT8=1,
+    which ops/lstm_layer.py reads at import; set here on the module for
+    this phase only): 3 calls of cfg.steps_per_call steps (the first as
+    single steps), the loss falling, the grads within GRAD_TOL of the plain
+    route, the per-layer pair on its persistent kernels at 4 launches a
+    step each.  The rule must code the gates of both passes (160 rows x 96
+    and x 95 steps)."""
+    from fewshot_torch.ops import lstm_layer
+    rows = cfg.batch_size * cfg.support_size
+    lstm_layer.GATES_INT8 = True
+    try:
+        coded = {t: lstm_layer.saved_gates_dtype(rows, t, H, torch.bfloat16)
+                 for t in (cfg.max_len, cfg.max_len - 1)}
+        if set(coded.values()) != {torch.int8}:
+            raise RuntimeError(f"training_A_int8: gates not coded: {coded}")
+        rec = training_phase("training_A_int8", cfg, corpus, dev, layer_pair,
+                             per_step=layer_step, persistent=layer_pair,
+                             warmup=1, calls=2)
+    finally:
+        lstm_layer.GATES_INT8 = False
+    rec["gates_dtype"] = "int8"
     return rec
 
 
@@ -992,7 +1278,9 @@ def flash_phase(dev) -> dict:
 
 # the kernels whose bf16 route runs on tensor cores, by wrapper: (library,
 # the CUDA kernel's name in it)
-TENSOR_CORE = {"head_ce_bwd": ("head_ce", "head_ce_bwd_tc"),
+TENSOR_CORE = {"lstm_layer_fwd": ("lstm_fwd", "lstm_fwd_persist_kernel"),
+               "lstm_layer_bwd": ("lstm_bwd", "lstm_bwd_persist_kernel"),
+               "head_ce_bwd": ("head_ce", "head_ce_bwd_tc"),
                "prefix_attn_fwd": ("prefix_attn", "fwd_tc_kernel"),
                "prefix_attn_bwd_dq": ("prefix_attn", "dq_tc_kernel"),
                "prefix_attn_bwd_dkv": ("prefix_attn", "dkv_tc_kernel")}
@@ -1015,6 +1303,27 @@ def sass_hmma(lib: Path) -> dict:
         elif fn is not None and "HMMA" in line:
             counts[fn] += 1
     return counts
+
+
+def ptxas_report(build_log: str) -> dict:
+    """{entry function: [registers, spill store bytes, spill load bytes]}
+    from nvcc's -Xptxas=-v output."""
+    import re
+    out, fn = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = [None, 0, 0]
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn][0] = int(m.group(1))
+    return out
 
 
 def build_all() -> dict:
@@ -1042,6 +1351,12 @@ def build_all() -> dict:
         if counts and not (hits and all(hits.values())):
             raise RuntimeError(f"{kernel}: no tensor-core instruction in "
                                f"its SASS: {hits}")
+        # [registers, spill stores, spill loads] of each instantiation
+        regs = {fn: v for fn, v in ptxas_report(
+            _ext.build_log.get(lib, "")).items() if kernel in fn}
+        log(f"  ptxas {kernel}: {sorted(v for v in regs.values()) or 'not read'}")
+        if any(v[1] or v[2] for v in regs.values()):
+            raise RuntimeError(f"{kernel} spills registers: {regs}")
     return hmma
 
 
@@ -1059,6 +1374,10 @@ def main() -> int:
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
+    if "--lstm-split" in sys.argv[1:]:
+        print(json.dumps({"card": card, "lstm_launch_split":
+                          lstm_launch_split(dev)}), flush=True)
+        return 0
     hmma = build_all()
 
     log("kernels vs plain twins (full width):")
@@ -1075,12 +1394,18 @@ def main() -> int:
     bench = dataclasses.replace(base, support_mode="mean_state",
                                 batch_size=32)
     shipped = dataclasses.replace(base, support_mode="state", batch_size=16)
-    serve_a = serving_phase("serving_A", bench, corpus, dev, "lstm_layer_fwd")
+    layer_pair = ("lstm_layer_fwd", "lstm_layer_bwd")
+    layer_step = {"lstm_layer_fwd": 2 * LAYERS, "lstm_layer_bwd": 2 * LAYERS}
+    serve_a = serving_phase("serving_A", bench, corpus, dev, "lstm_layer_fwd",
+                            persistent=("lstm_layer_fwd",))
     serve_b = serving_phase("serving_B", shipped, corpus, dev,
                             "lstm_stack_fwd")
+    # the support and query passes run each layer's kernel pair once a step
     train_a = training_phase(
         "training_A", dataclasses.replace(bench, steps_per_call=10), corpus,
-        dev, ("lstm_layer_fwd", "lstm_layer_bwd"))
+        dev, layer_pair, per_step=layer_step, persistent=layer_pair)
+    train_a8 = int8_phase(dataclasses.replace(bench, steps_per_call=10),
+                          corpus, dev, layer_pair, layer_step)
     train_b = training_phase(
         "training_B", dataclasses.replace(shipped, steps_per_call=10),
         corpus, dev, ("lstm_stack_fwd", "lstm_stack_bwd"))
@@ -1104,9 +1429,12 @@ def main() -> int:
         steps_per_call=10, support_cache=True, cache_backoff="global",
         cache_calib=True, cache_dynamic=True, cache_resp_floor=0.25)
     train_c = training_phase(
-        "training_C", cache, scale, dev,
-        ("lstm_layer_fwd", "lstm_layer_bwd", "head_ce_fwd", "head_ce_bwd"),
-        evaluate=True, per_step={"head_ce_fwd": 1, "head_ce_bwd": 1})
+        "training_C", cache, scale, dev, layer_pair + ("head_ce_fwd",
+                                                       "head_ce_bwd"),
+        evaluate=True,
+        per_step={**layer_step, "head_ce_fwd": 1, "head_ce_bwd": 1},
+        per_eval_batch={"lstm_layer_fwd": 2 * LAYERS, "head_ce_fwd": 1},
+        persistent=layer_pair)
 
     # the episodic transformer: its attention shapes (query stream: B=32
     # episodes x Q=5 songs x L-1 rows against a K*L prefix; prefix stream:
@@ -1185,6 +1513,28 @@ def main() -> int:
             rec["sass_hmma"] = hmma[name]
         if "deterministic" in r:
             rec["deterministic"] = r["deterministic"] and f["deterministic"]
+        if "library_runs" in r:
+            rec["library_runs"] = r["library_runs"]
+            rec["library_busy_ms"] = r["library_busy_ms"]
+            rec["library_busy_runs"] = r["library_busy_runs"]
+        if (key + "_v1", torch.bfloat16) in records:   # kernels 1-2
+            v1 = records[(key + "_v1", torch.bfloat16)]
+            coded = records[(key + "_int8", torch.bfloat16)]
+            lead = records[("layer", torch.bfloat16)]
+            rec.update({
+                "bf16_kernel": r["route"], "fp32_kernel": f["route"],
+                "route_launches": phase["route_launches"][name],
+                "v1_step_kernels": {k: v1[k] for k in (
+                    "ms", "max_abs_err", "plain_ms")},
+                "int8_gates": {k: coded[k] for k in (
+                    "ms", "max_abs_err", "errors", "bound_ms", "bound_by")},
+                "training_A_int8": {
+                    "launches": train_a8["launches"][name],
+                    "route_launches": train_a8["route_launches"][name]},
+                "max_active_clusters": lead["max_active_clusters"]})
+            rec.update({k: v for k, v in lead.items()
+                        if k.endswith("deterministic") or k.startswith(
+                            "state_same")})
         if serve is not None:
             rec["launches_serving"] = serve["launches"][name]
             rec["launches_per_serving_batch"] = \

@@ -34,11 +34,16 @@ _I = ctypes.c_int
 # C signature of every exported function: argument types, int result
 SIGNATURES = {
     "lstm_fwd": {
-        "lstm_fwd_layer": [_P] * 9 + [_I] * 4 + [_P],
+        "lstm_fwd_layer": [_P] * 9 + [_I] * 5 + [_P],
+        "lstm_fwd_persist": [_P] * 12 + [_I] * 5 + [_P],
+        "lstm_persist_ok": [_I] * 3,
+        "lstm_fwd_persist_clusters": [_I],
         "lstm_fwd_stack": [_P] * 10 + [_I] * 5 + [_P],
     },
     "lstm_bwd": {
-        "lstm_bwd_layer": [_P] * 10 + [_I] * 4 + [_P],
+        "lstm_bwd_layer": [_P] * 10 + [_I] * 5 + [_P],
+        "lstm_bwd_persist": [_P] * 13 + [_I] * 5 + [_P],
+        "lstm_bwd_persist_clusters": [_I],
         "lstm_bwd_stack": [_P] * 11 + [_I] * 5 + [_P],
     },
     "head_ce": {
@@ -98,10 +103,14 @@ def library_path(name: str, csrc: Path = CSRC) -> Path:
 
 
 def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library of the same hash exists."""
+    """Compile csrc/<name>.cu unless a library of the same hash exists;
+    nvcc's output is kept beside the library (<library>.log)."""
     src = CSRC / f"{name}.cu"
     out = library_path(name)
+    log = out.with_name(out.name + ".log")
     if out.exists():
+        if log.exists():
+            build_log[name] = log.read_text()
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -110,6 +119,7 @@ def build(name: str) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
     build_log[name] = proc.stdout + proc.stderr
+    log.write_text(build_log[name])
     os.replace(tmp, out)
     return out
 

@@ -2,7 +2,9 @@
 // interface.
 //
 // Replace the two TPU backward kernels of the JAX package:
-//   * fewshot/ops/lstm_pallas.py `_bwd_kernel`  -> lstm_bwd_layer (one layer)
+//   * fewshot/ops/lstm_pallas.py `_bwd_kernel`  -> lstm_bwd_persist (bf16,
+//     H = 128..512 in steps of 128: one launch a call) and lstm_bwd_layer
+//     (fp32, and bf16 past that width: one launch per time step)
 //   * fewshot/ops/lstm_fused.py  `_bwd_kernel`  -> lstm_bwd_stack (all layers
 //     of one time step, top layer first)
 //
@@ -18,31 +20,45 @@
 // exactly as the Pallas kernels do: c_{t-1} and tanh(c_t) come from the
 // stream-dtype cs (c0 in fp32 at t = 0), dz is stored in the stream dtype
 // (dzx) and rounded to the weight dtype for the products, which sum in fp32.
-// The stream dtype equals the weight dtype in the port, so the rounded dz of
-// step t+1 is read straight back from dzx[t+1].  db is summed in the kernel
-// from the unrounded fp32 dz, as per-row-block partials that the caller
-// adds up; dWh and dWx are bulk products over the saved streams, outside.
+// The per-layer kernels also read int8-coded gates (gates code 1,
+// lstm_pallas.py's FEWSHOT_LSTM_GATES_INT8 branch): g = q / 127, then
+// (g + 1) / 2 for the sigmoids.  db is summed in the kernels from the
+// unrounded fp32 dz, as per-row-block partials that the caller adds up;
+// dWh and dWx are bulk products over the saved streams, outside.
 //
-// Design.  The dependency per step is the whole dz_{t+1} [rows, 4H] row
-// contracted with Wh^T.  As in the forward (lstm_fwd.cu), one launch runs
-// one step (and one layer), and the launch boundary is the grid barrier.  A
-// block owns ROWS rows and UNITS hidden units: it stages its rows of dz_{t+1}
-// (4H wide) and its units' Wh rows (each a contiguous 4H row of Wh [H, 4H])
-// in shared memory with 16-byte cp.async copies, forms dh for its units
-// (the contraction split over KSPLIT thread groups), then computes the four
-// gate deltas of its units locally and writes them to dzx[t].  The carried
-// fp32 dh and dc live in device memory, each element read and written only
-// by its owning thread.  A last launch per layer contracts dz_0 for dh0.
+// The step kernels (lstm_bwd_step_kernel).  The dependency per step is the
+// whole dz_{t+1} [rows, 4H] row contracted with Wh^T.  As in the forward
+// (lstm_fwd.cu), one launch runs one step (and one layer), and the launch
+// boundary is the grid barrier.  A block owns ROWS rows and UNITS hidden
+// units: it stages its rows of dz_{t+1} (4H wide) and its units' Wh rows in
+// shared memory with 16-byte cp.async copies, forms dh for its units (the
+// contraction split over KSPLIT thread groups, fp32 SIMT), then the four
+// gate deltas of its units, written to dzx[t].  The carried fp32 dh and dc
+// live in device memory.  A last launch per layer contracts dz_0 for dh0.
+// At 160 rows x 96 steps, H=512, a step costs ~56 us, ~1 us of it the
+// launch: the per-step L2 reads and the SIMT products bound it.
 //
-// Bound.  At the training shapes a step is small (160 or 16 rows), so the
-// kernel is bound by per-step latency (launch, the L2 reads of Wh and dz, the
-// fp32 FMA loop), far above its device-memory bound.  The same next steps as
-// for the forward apply: a persistent kernel and tensor-core products.
+// The persistent kernel (lstm_bwd_persist_kernel, lstm_cluster.cuh).  A
+// row tile of 32 rows runs on one cluster of NB = H / 32 blocks for all
+// steps; block j keeps the same resident Wh[:, C_j] slice as the forward.
+// Step t: block j forms dz[rows, C_j] from its own units' gates, cs, dh and
+// dc, writes dzx and adds the unrounded dz to its db in registers, then the
+// partial dh_j[rows, :] = bf16(dz[rows, C_j]) . Wh[:, C_j]^T on mma.sync (the
+// slice read as B = Wh^T).  A reduce-scatter sends the [rows, U_k] slice of
+// that partial to block k through L2 (a scratch buffer, ordered by the
+// cluster barrier); block k sums the NB partials in the fixed order
+// j = 0..NB-1 and adds (1 - mf) dh: no float atomics, the same bits on
+// every launch.  The exchange (64 KB of fp32 partials written and read by
+// every SM a step at H=512) and the barrier bound it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include <type_traits>
+
+#include "lstm_cluster.cuh"
 
 namespace {
 
@@ -62,6 +78,19 @@ __device__ __forceinline__ float from_float<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
+}
+
+// A saved gate back to its activation: the stream dtype as stored; int8
+// decoded, g = q / 127, then (g + 1) / 2 for a sigmoid (rounded at the same
+// points as lstm_pallas.py, never fused into an FMA)
+template <typename G>
+__device__ __forceinline__ float gate_in(G v, bool sig) {
+  return to_float(v);
+}
+template <>
+__device__ __forceinline__ float gate_in<int8_t>(int8_t v, bool sig) {
+  const float g = __fmul_rn(static_cast<float>(v), 1.0f / 127.0f);
+  return sig ? __fmul_rn(__fadd_rn(g, 1.0f), 0.5f) : g;
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
@@ -124,6 +153,9 @@ __device__ __forceinline__ void stage(const T* __restrict__ dz,
                                       int u0, T* dzs, T* ws) {
   const int tid = threadIdx.x;
   const int pieces = 4 * hidden * (int)sizeof(T) / 16;   // per 4H row
+  // unrolled explicitly: left to nvcc, the unroll moved with unrelated code
+  // in this file, and kernel 4's time with it
+#pragma unroll 4
   for (int e = tid; e < (ROWS + UNITS) * pieces; e += THREADS) {
     const int r = e / pieces, p = e % pieces;
     if (r < ROWS) {
@@ -189,7 +221,7 @@ struct StepArgs {
   int hidden;
 };
 
-template <typename T, int ROWS, int UNITS, int KSPLIT>
+template <typename T, typename G, int ROWS, int UNITS, int KSPLIT>
 __global__ void __launch_bounds__(BwdTile<T, ROWS, UNITS, KSPLIT>::kThreads)
     lstm_bwd_step_kernel(StepArgs a) {
   using Tile = BwdTile<T, ROWS, UNITS, KSPLIT>;
@@ -278,11 +310,11 @@ __global__ void __launch_bounds__(BwdTile<T, ROWS, UNITS, KSPLIT>::kThreads)
         const float dh = ext + dh_c;
         const float dc = a.dc[idx];
         const float mf = a.mask[row] > 0.0f ? 1.0f : 0.0f;
-        const T* g = static_cast<const T*>(a.gates) + (size_t)row * four_h + u;
-        const float si = to_float(g[0]);
-        const float tj = to_float(g[hidden]);
-        const float sf = to_float(g[2 * (size_t)hidden]);
-        const float so = to_float(g[3 * (size_t)hidden]);
+        const G* g = static_cast<const G*>(a.gates) + (size_t)row * four_h + u;
+        const float si = gate_in(g[0], true);
+        const float tj = gate_in(g[hidden], false);
+        const float sf = gate_in(g[2 * (size_t)hidden], true);
+        const float so = gate_in(g[3 * (size_t)hidden], true);
         const float tc = tanhf(to_float(static_cast<const T*>(a.cs)[idx]));
         const float c_prev =
             a.cs_prev != nullptr
@@ -318,7 +350,7 @@ __global__ void __launch_bounds__(BwdTile<T, ROWS, UNITS, KSPLIT>::kThreads)
   }
 }
 
-template <typename T, int ROWS, int UNITS, int KSPLIT>
+template <typename T, typename G, int ROWS, int UNITS, int KSPLIT>
 struct BwdLauncher {
   using Tile = BwdTile<T, ROWS, UNITS, KSPLIT>;
   size_t smem = 0;
@@ -326,14 +358,14 @@ struct BwdLauncher {
   cudaError_t prepare(int hidden) {
     smem = Tile::smem_bytes(hidden);
     if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
-    return cudaFuncSetAttribute(lstm_bwd_step_kernel<T, ROWS, UNITS, KSPLIT>,
+    return cudaFuncSetAttribute(lstm_bwd_step_kernel<T, G, ROWS, UNITS, KSPLIT>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)smem);
   }
 
   cudaError_t launch(const StepArgs& a, cudaStream_t stream) const {
     const dim3 grid(a.hidden / UNITS, (a.rows + ROWS - 1) / ROWS);
-    lstm_bwd_step_kernel<T, ROWS, UNITS, KSPLIT>
+    lstm_bwd_step_kernel<T, G, ROWS, UNITS, KSPLIT>
         <<<grid, Tile::kThreads, smem, stream>>>(a);
     return cudaGetLastError();
   }
@@ -343,7 +375,7 @@ struct BwdLauncher {
 // Stack layout: gates/dzx [L, T, B, 4H], cs [L, T, B, H], wh [L, H, 4H],
 // wx_rest [L-1, H, 4H], c0/dh/dc [L, B, H], db [row blocks, L, 4H]; dys
 // [T, B, H] lands on the top layer.
-template <typename T, typename L>
+template <typename T, typename G, typename L>
 cudaError_t run_with(L& launcher, const void* gates_v, const void* wx_v,
                      const void* wh_v, const float* mask, const void* cs_v,
                      const float* c0, const void* dys_v, float* dh, float* dc,
@@ -351,7 +383,7 @@ cudaError_t run_with(L& launcher, const void* gates_v, const void* wx_v,
                      int layers, cudaStream_t stream) {
   cudaError_t err = launcher.prepare(hidden);
   if (err != cudaSuccess) return err;
-  const T* gates = static_cast<const T*>(gates_v);
+  const G* gates = static_cast<const G*>(gates_v);
   const T* wx = static_cast<const T*>(wx_v);
   const T* wh = static_cast<const T*>(wh_v);
   const T* cs = static_cast<const T*>(cs_v);
@@ -404,22 +436,23 @@ bool use_wide(int rows, int hidden) {
          BwdTile<T, 32, 8, 2>::smem_bytes(hidden) <= (size_t)kMaxSmem;
 }
 
-template <typename T>
+template <typename T, typename G>
 cudaError_t dispatch(const void* gates, const void* wx_rest, const void* wh,
                      const float* mask, const void* cs, const float* c0,
                      const void* dys, float* dh, float* dc, void* dzx,
                      float* db, int steps, int rows, int hidden, int layers,
                      cudaStream_t st) {
   if (use_wide<T>(rows, hidden)) {
-    BwdLauncher<T, 32, 8, 2> l;
-    return run_with<T>(l, gates, wx_rest, wh, mask, cs, c0, dys, dh, dc, dzx,
-                       db, steps, rows, hidden, layers, st);
+    BwdLauncher<T, G, 32, 8, 2> l;
+    return run_with<T, G>(l, gates, wx_rest, wh, mask, cs, c0, dys, dh, dc,
+                          dzx, db, steps, rows, hidden, layers, st);
   }
-  BwdLauncher<T, 16, 4, 8> l;
-  return run_with<T>(l, gates, wx_rest, wh, mask, cs, c0, dys, dh, dc, dzx,
-                     db, steps, rows, hidden, layers, st);
+  BwdLauncher<T, G, 16, 4, 8> l;
+  return run_with<T, G>(l, gates, wx_rest, wh, mask, cs, c0, dys, dh, dc,
+                        dzx, db, steps, rows, hidden, layers, st);
 }
 
+template <typename G8>
 int run(const void* gates, const void* wx_rest, const void* wh,
         const float* mask, const void* cs, const float* c0, const void* dys,
         float* dh, float* dc, void* dzx, float* db, int steps, int rows,
@@ -428,19 +461,341 @@ int run(const void* gates, const void* wx_rest, const void* wh,
     return cudaErrorInvalidValue;
   if (steps == 0) return cudaSuccess;      // dh0 = dhT, dc0 = dcT
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // G8 = int8_t: int8-coded gates; void: gates in the stream dtype
+  constexpr bool coded = !std::is_void<G8>::value;
+  using GF = typename std::conditional<coded, int8_t, float>::type;
+  using GB = typename std::conditional<coded, int8_t, __nv_bfloat16>::type;
   if (dtype == 0)
-    return dispatch<float>(gates, wx_rest, wh, mask, cs, c0, dys, dh, dc, dzx,
-                           db, steps, rows, hidden, layers, st);
+    return dispatch<float, GF>(gates, wx_rest, wh, mask, cs, c0, dys, dh, dc,
+                               dzx, db, steps, rows, hidden, layers, st);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(gates, wx_rest, wh, mask, cs, c0, dys, dh,
-                                   dc, dzx, db, steps, rows, hidden, layers,
-                                   st);
+    return dispatch<__nv_bfloat16, GB>(gates, wx_rest, wh, mask, cs, c0, dys,
+                                       dh, dc, dzx, db, steps, rows, hidden,
+                                       layers, st);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// The persistent bf16 kernel
+// ---------------------------------------------------------------------------
+
+namespace pc = lstm_cluster;
+using bf16 = __nv_bfloat16;
+
+// Shared memory of a block at H = 32 NB: the resident slice, its bf16 dz
+// tile (the product's A operand, columns in the slice's order) and the
+// [rows][128] fp32 scratch of the last db reduction.
+template <int NB>
+struct BwdSmem {
+  static constexpr int kHidden = NB * pc::kUnits;
+  static constexpr size_t kWs = (size_t)kHidden * pc::kWsPitch * 2;
+  static constexpr size_t kD = (size_t)pc::kRows * pc::kWsPitch * 2;
+  static constexpr size_t kPart = (size_t)pc::kRows * pc::kCols * 4;
+  static constexpr size_t kBytes = kWs + kD + kPart;
+  static_assert(kBytes <= (size_t)kMaxSmem, "backward slice does not fit");
+};
+
+// Four consecutive saved gates of one kind: bf16 (8 bytes) or int8 (4).
+template <typename G>
+struct Gate4 {
+  using V = uint2;
+};
+template <>
+struct Gate4<int8_t> {
+  using V = uint32_t;
+};
+
+// Entry e of four packed bf16, as fp32 (a bf16 is the top half of its
+// fp32)
+__device__ __forceinline__ float bf16_at(uint2 v, int e) {
+  const uint32_t w = e < 2 ? v.x : v.y;
+  return __uint_as_float(e % 2 ? w & 0xffff0000u : w << 16);
+}
+__device__ __forceinline__ float gate4_at(uint2 v, int e, bool sig) {
+  return bf16_at(v, e);
+}
+__device__ __forceinline__ float gate4_at(uint32_t v, int e, bool sig) {
+  return gate_in(static_cast<int8_t>(static_cast<uint8_t>(v >> (8 * e))),
+                 sig);
+}
+
+// One step's inputs of a thread's four (row, unit) pairs.
+template <typename G>
+struct StepIn {
+  typename Gate4<G>::V g[4];
+  uint2 cs, cs_prev, dys;
+  float m;
+};
+
+// Load step t's inputs for row `row`, units u..u+3; zeros past the rows.
+template <typename G>
+__device__ __forceinline__ void load_step(StepIn<G>& in, const G* gates,
+                                          const float* mask, const bf16* cs,
+                                          const bf16* dys, int t, int row,
+                                          int rows, int hidden, int u) {
+  using V = typename Gate4<G>::V;
+  if (row >= rows) {
+    for (int g = 0; g < 4; ++g) in.g[g] = V{};
+    in.cs = in.cs_prev = in.dys = make_uint2(0, 0);
+    in.m = 0.f;
+    return;
+  }
+  const size_t rs = (size_t)t * rows + row;
+  const G* gp = gates + rs * 4 * hidden + u;
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    in.g[g] = *reinterpret_cast<const V*>(gp + (size_t)g * hidden);
+  in.cs = *reinterpret_cast<const uint2*>(cs + rs * hidden + u);
+  in.cs_prev = t > 0 ? *reinterpret_cast<const uint2*>(
+                           cs + (rs - rows) * hidden + u)
+                     : make_uint2(0, 0);
+  in.dys = *reinterpret_cast<const uint2*>(dys + rs * hidden + u);
+  in.m = mask[rs];
+}
+
+// gates [T, B, 4H] in G; wh [H, 4H], cs/dys [T, B, H] bf16; mask [T, B];
+// c0/dhT/dcT/dh0/dc0 [B, H] fp32; dzx [T, B, 4H] bf16 (out); db
+// [row tiles, 4H] fp32 (out, one partial per row tile); xbuf, the
+// exchange: [2 (step parity)][row tiles][NB owners][NB senders][rows][32]
+// fp32, 2 x tiles x H^2 floats.  Grid (NB, row tiles) in clusters of
+// (NB, 1).
+//
+// The reduce-scatter goes through L2: each sender writes its [rows, U_k]
+// slices into the owners' regions of the step's half of xbuf, a cluster
+// barrier (release / acquire) orders them, and each owner reads its NB
+// slices back (ld.global.cg); pushed into the peers' shared memory with
+// st.shared::cluster instead, the same bytes took longer than the rest of
+// the step.  The halves alternate by step, so one barrier a step suffices:
+// a half is written again only after every block passed the barrier that
+// follows its reads.
+//
+// Cell phase: thread tid owns row tid / 8 of the tile and units 4 (tid % 8)
+// .. + 3 of the block.  Product phase: warp w owns hidden units
+// [w H / 8, (w + 1) H / 8) of the partial (its n), both 16-row m tiles and
+// the whole 128-deep contraction.
+template <int NB, typename G>
+__global__ void __launch_bounds__(pc::kThreads, 1)
+    lstm_bwd_persist_kernel(const G* __restrict__ gates,
+                            const bf16* __restrict__ wh,
+                            const float* __restrict__ mask,
+                            const bf16* __restrict__ cs,
+                            const float* __restrict__ c0,
+                            const bf16* __restrict__ dys,
+                            const float* __restrict__ dhT,
+                            const float* __restrict__ dcT,
+                            float* __restrict__ dh0, float* __restrict__ dc0,
+                            bf16* __restrict__ dzx, float* __restrict__ db,
+                            float* __restrict__ xbuf, int steps, int rows) {
+  using Sm = BwdSmem<NB>;
+  constexpr int H = Sm::kHidden;
+  constexpr int NF = H / 64;                 // n fragments of a warp
+  constexpr size_t kSlice = (size_t)pc::kRows * pc::kUnits;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ws = reinterpret_cast<bf16*>(smem);
+  bf16* dtile = reinterpret_cast<bf16*>(smem + Sm::kWs);
+  float* part = reinterpret_cast<float*>(smem + Sm::kWs + Sm::kD);
+  // this tile's exchange region in each half of xbuf
+  const size_t half = (size_t)gridDim.y * NB * NB * kSlice;
+  float* xtile = xbuf + (size_t)blockIdx.y * NB * NB * kSlice;
+  const unsigned me = pc::rank();
+  const int u0 = me * pc::kUnits;
+  const int row0 = blockIdx.y * pc::kRows;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int r = tid / 8, i0 = 4 * (tid % 8);  // cell phase: row, first unit
+  const int row = row0 + r;
+  const bool valid = row < rows;
+  const size_t sidx = (size_t)row * H + u0 + i0;
+
+  pc::stage_slice(wh, H, u0, ws);
+  float dh_c[4], dc[4], keep[4] = {}, c0v[4], dbs[4][4] = {};
+  {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 a = valid ? *reinterpret_cast<const float4*>(dhT + sidx) : z;
+    const float4 b = valid ? *reinterpret_cast<const float4*>(dcT + sidx) : z;
+    const float4 c = valid ? *reinterpret_cast<const float4*>(c0 + sidx) : z;
+    dh_c[0] = a.x, dh_c[1] = a.y, dh_c[2] = a.z, dh_c[3] = a.w;
+    dc[0] = b.x, dc[1] = b.y, dc[2] = b.z, dc[3] = b.w;
+    c0v[0] = c.x, c0v[1] = c.y, c0v[2] = c.z, c0v[3] = c.w;
+  }
+  StepIn<G> cur{}, nxt{};
+  if (steps > 0)
+    load_step(cur, gates, mask, cs, dys, steps - 1, row, rows, H, u0 + i0);
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  // dh_c = the partials of step t + 1 (xbuf half (t + 1) % 2), in block
+  // order, + (1 - mf) dh
+  auto gather = [&](int t) {
+    const float* src = xtile + ((t + 1) & 1) * half +
+                       (size_t)me * NB * kSlice + (size_t)r * pc::kUnits + i0;
+    float4 p[NB];
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      p[j] = __ldcg(reinterpret_cast<const float4*>(src + j * kSlice));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dh_c[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      dh_c[0] += p[j].x, dh_c[1] += p[j].y, dh_c[2] += p[j].z,
+          dh_c[3] += p[j].w;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dh_c[e] += keep[e];
+  };
+
+  for (int t = steps - 1; t >= 0; --t) {
+    if (t < steps - 1) gather(t);
+    if (t > 0) load_step(nxt, gates, mask, cs, dys, t - 1, row, rows, H,
+                         u0 + i0);
+    // the cell's backward for this thread's four pairs
+    const float mf = cur.m > 0.0f ? 1.0f : 0.0f;
+    float d[4][4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float si = gate4_at(cur.g[0], e, true);
+      const float tj = gate4_at(cur.g[1], e, false);
+      const float sf = gate4_at(cur.g[2], e, true);
+      const float so = gate4_at(cur.g[3], e, true);
+      const float tc = tanhf(bf16_at(cur.cs, e));
+      const float c_prev = t > 0 ? bf16_at(cur.cs_prev, e) : c0v[e];
+      const float dh = bf16_at(cur.dys, e) + dh_c[e];
+      const float d_new_h = mf * dh;
+      const float d_new_c = d_new_h * so * (1.0f - tc * tc) + mf * dc[e];
+      d[0][e] = d_new_c * tj * si * (1.0f - si);
+      d[1][e] = d_new_c * si * (1.0f - tj * tj);
+      d[2][e] = d_new_c * c_prev * sf * (1.0f - sf);
+      d[3][e] = d_new_h * tc * so * (1.0f - so);
+      keep[e] = (1.0f - mf) * dh;
+      dc[e] = d_new_c * sf + (1.0f - mf) * dc[e];
+    }
+#pragma unroll
+    for (int g = 0; g < 4; ++g) {
+      const uint2 packed = make_uint2(mma::pack_bf16(d[g][0], d[g][1]),
+                                      mma::pack_bf16(d[g][2], d[g][3]));
+      *reinterpret_cast<uint2*>(dtile + r * pc::kWsPitch +
+                                pc::slice_col(g, i0)) = packed;
+      if (valid)
+        *reinterpret_cast<uint2*>(
+            dzx + ((size_t)t * rows + row) * 4 * H + (size_t)g * H + u0 +
+            i0) = packed;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dbs[g][e] += d[g][e];
+    }
+    __syncthreads();
+    // the partial bf16(dz[rows, C_j]) . Wh[:, C_j]^T over this warp's n
+    float acc[2][NF][4] = {};
+    const int n0 = warp * (H / 8);
+#pragma unroll 2
+    for (int k0 = 0; k0 < pc::kCols; k0 += 16) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        mma::ldsm_x4(af[m], dtile + (16 * m + mma::a_row(lane)) *
+                                        pc::kWsPitch +
+                                    k0 + mma::a_col(lane));
+#pragma unroll
+      for (int pr = 0; pr < NF / 2; ++pr) {
+        uint32_t bfr[4];
+        mma::ldsm_x4(bfr, ws + (size_t)(n0 + 16 * pr + mma::bn_row(lane)) *
+                                   pc::kWsPitch +
+                               k0 + mma::bn_col(lane));
+#pragma unroll
+        for (int m = 0; m < 2; ++m) {
+          mma::mma_bf16(acc[m][2 * pr], af[m], bfr[0], bfr[1]);
+          mma::mma_bf16(acc[m][2 * pr + 1], af[m], bfr[2], bfr[3]);
+        }
+      }
+    }
+    // reduce-scatter: 16-byte pieces (4 units of one row) to their owners'
+    // slices; lane pairs swap halves so each holds four consecutive columns
+    float* dst = xtile + (t & 1) * half + (size_t)me * kSlice;
+    const int gl = lane / 4, tl = lane % 4;
+    const bool odd = tl & 1;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int f = 0; f < NF; ++f) {
+        const float* v = acc[m][f];
+        const float sx = odd ? v[0] : v[2], sy = odd ? v[1] : v[3];
+        const float ox = __shfl_xor_sync(0xffffffffu, sx, 1);
+        const float oy = __shfl_xor_sync(0xffffffffu, sy, 1);
+        const uint4 piece =
+            odd ? make_uint4(__float_as_uint(ox), __float_as_uint(oy),
+                             __float_as_uint(v[2]), __float_as_uint(v[3]))
+                : make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                             __float_as_uint(ox), __float_as_uint(oy));
+        const int pr_row = 16 * m + gl + (odd ? 8 : 0);
+        const int n = n0 + 8 * f + 2 * (tl & ~1);
+        __stcg(reinterpret_cast<uint4*>(dst + (size_t)(n / pc::kUnits) * NB *
+                                                  kSlice +
+                                        pr_row * pc::kUnits +
+                                        n % pc::kUnits),
+               piece);
+      }
+    pc::sync();  // the partials of step t are written and visible
+    cur = nxt;
+  }
+  if (steps > 0) gather(-1);
+  if (valid) {
+    *reinterpret_cast<float4*>(dh0 + sidx) =
+        make_float4(dh_c[0], dh_c[1], dh_c[2], dh_c[3]);
+    *reinterpret_cast<float4*>(dc0 + sidx) =
+        make_float4(dc[0], dc[1], dc[2], dc[3]);
+  }
+  // db of the tile: each column's 32 rows summed in row order
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+    *reinterpret_cast<float4*>(part + r * pc::kCols + g * pc::kUnits + i0) =
+        make_float4(dbs[g][0], dbs[g][1], dbs[g][2], dbs[g][3]);
+  __syncthreads();
+  if (tid < pc::kCols) {
+    float s = 0.f;
+    for (int rr = 0; rr < pc::kRows; ++rr) s += part[rr * pc::kCols + tid];
+    const int g = tid / pc::kUnits, i = tid % pc::kUnits;
+    db[(size_t)blockIdx.y * 4 * H + (size_t)g * H + u0 + i] = s;
+  }
+}
+
+template <int NB, typename G>
+cudaError_t persist_with(const void* gates, const void* wh,
+                         const float* mask, const void* cs, const float* c0,
+                         const void* dys, const float* dhT, const float* dcT,
+                         float* dh0, float* dc0, void* dzx, float* db,
+                         float* xbuf, int steps, int rows, cudaStream_t st) {
+  return pc::launch(lstm_bwd_persist_kernel<NB, G>, NB, rows,
+                    BwdSmem<NB>::kBytes, st, static_cast<const G*>(gates),
+                    static_cast<const bf16*>(wh), mask,
+                    static_cast<const bf16*>(cs), c0,
+                    static_cast<const bf16*>(dys), dhT, dcT, dh0, dc0,
+                    static_cast<bf16*>(dzx), db, xbuf, steps, rows);
+}
+
+template <typename G>
+cudaError_t persist(const void* gates, const void* wh, const float* mask,
+                    const void* cs, const float* c0, const void* dys,
+                    const float* dhT, const float* dcT, float* dh0,
+                    float* dc0, void* dzx, float* db, float* xbuf,
+                    int steps, int rows, int hidden, cudaStream_t st) {
+  switch (hidden / pc::kUnits) {
+    case 4:
+      return persist_with<4, G>(gates, wh, mask, cs, c0, dys, dhT, dcT, dh0,
+                                dc0, dzx, db, xbuf, steps, rows, st);
+    case 8:
+      return persist_with<8, G>(gates, wh, mask, cs, c0, dys, dhT, dcT, dh0,
+                                dc0, dzx, db, xbuf, steps, rows, st);
+    case 12:
+      return persist_with<12, G>(gates, wh, mask, cs, c0, dys, dhT, dcT, dh0,
+                                 dc0, dzx, db, xbuf, steps, rows, st);
+    case 16:
+      return persist_with<16, G>(gates, wh, mask, cs, c0, dys, dhT, dcT, dh0,
+                                 dc0, dzx, db, xbuf, steps, rows, st);
+  }
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // dtype: 0 = fp32 weights and streams, 1 = bf16 weights and streams.
+// gates_code: 0 = gates in the stream dtype, 1 = int8 coded.
 // gates [T, B, 4H], wh [H, 4H], mask [T, B], cs [T, B, H], c0 [B, H] fp32,
 // dys [T, B, H]; dh/dc [B, H] fp32 hold dhT/dcT on entry and dh0/dc0 on
 // return; dzx [T, B, 4H] (out); db [ceil(B / 16), 4H] fp32, zeroed by the
@@ -450,9 +805,59 @@ extern "C" int lstm_bwd_layer(const void* gates, const void* wh,
                               const float* mask, const void* cs,
                               const float* c0, const void* dys, float* dh,
                               float* dc, void* dzx, float* db, int steps,
-                              int rows, int hidden, int dtype, void* stream) {
-  return run(gates, nullptr, wh, mask, cs, c0, dys, dh, dc, dzx, db, steps,
-             rows, hidden, 1, dtype, stream);
+                              int rows, int hidden, int dtype,
+                              int gates_code, void* stream) {
+  if (gates_code == 0)
+    return run<void>(gates, nullptr, wh, mask, cs, c0, dys, dh, dc, dzx, db,
+                     steps, rows, hidden, 1, dtype, stream);
+  if (gates_code == 1)
+    return run<int8_t>(gates, nullptr, wh, mask, cs, c0, dys, dh, dc, dzx,
+                       db, steps, rows, hidden, 1, dtype, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The persistent kernel (bf16 only): gates [T, B, 4H] (gates_code 0: bf16,
+// 1: int8), wh [H, 4H], mask [T, B], cs [T, B, H], c0 [B, H] fp32, dys
+// [T, B, H], dhT/dcT [B, H] fp32 (read only); dh0/dc0 [B, H] fp32, dzx
+// [T, B, 4H] and db [ceil(B / 32), 4H] fp32 (each row tile's partial,
+// every entry written): out; xbuf: 2 ceil(B / 32) H^2 fp32 of scratch.
+extern "C" int lstm_bwd_persist(const void* gates, const void* wh,
+                                const float* mask, const void* cs,
+                                const float* c0, const void* dys,
+                                const float* dhT, const float* dcT,
+                                float* dh0, float* dc0, void* dzx, float* db,
+                                float* xbuf, int steps, int rows, int hidden,
+                                int dtype, int gates_code, void* stream) {
+  if (!pc::persist_ok(rows, hidden, dtype) || steps < 0 ||
+      (gates_code != 0 && gates_code != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gates_code == 1)
+    return persist<int8_t>(gates, wh, mask, cs, c0, dys, dhT, dcT, dh0, dc0,
+                           dzx, db, xbuf, steps, rows, hidden, st);
+  return persist<bf16>(gates, wh, mask, cs, c0, dys, dhT, dcT, dh0, dc0, dzx,
+                       db, xbuf, steps, rows, hidden, st);
+}
+
+// How many clusters of the persistent backward kernel at this hidden size
+// the card runs at once (cudaOccupancyMaxActiveClusters; -1 on error).
+extern "C" int lstm_bwd_persist_clusters(int hidden) {
+  if (!pc::persist_ok(1, hidden, 1)) return -1;
+  switch (hidden / pc::kUnits) {
+    case 4:
+      return pc::max_clusters(lstm_bwd_persist_kernel<4, bf16>, 4,
+                              BwdSmem<4>::kBytes);
+    case 8:
+      return pc::max_clusters(lstm_bwd_persist_kernel<8, bf16>, 8,
+                              BwdSmem<8>::kBytes);
+    case 12:
+      return pc::max_clusters(lstm_bwd_persist_kernel<12, bf16>, 12,
+                              BwdSmem<12>::kBytes);
+    case 16:
+      return pc::max_clusters(lstm_bwd_persist_kernel<16, bf16>, 16,
+                              BwdSmem<16>::kBytes);
+  }
+  return -1;
 }
 
 // Whole stack of L >= 2 layers: gates [L, T, B, 4H], wx_rest [L-1, H, 4H],
@@ -467,6 +872,6 @@ extern "C" int lstm_bwd_stack(const void* gates, const void* wx_rest,
                               int hidden, int layers, int dtype,
                               void* stream) {
   if (layers < 2) return cudaErrorInvalidValue;
-  return run(gates, wx_rest, wh, mask, cs, c0, dys, dh, dc, dzx, db, steps,
-             rows, hidden, layers, dtype, stream);
+  return run<void>(gates, wx_rest, wh, mask, cs, c0, dys, dh, dc, dzx, db,
+                   steps, rows, hidden, layers, dtype, stream);
 }

@@ -1,47 +1,60 @@
 // Forward LSTM recurrence kernels for Hopper (sm_90a), plain C interface.
 //
 // Replace the two TPU forward kernels of the JAX package:
-//   * fewshot/ops/lstm_pallas.py `_fwd_kernel`  -> lstm_fwd_layer (one layer)
+//   * fewshot/ops/lstm_pallas.py `_fwd_kernel`  -> lstm_fwd_persist (bf16,
+//     H = 128..512 in steps of 128: one launch a call) and lstm_fwd_layer
+//     (fp32, and bf16 past that width: one launch per time step)
 //   * fewshot/ops/lstm_fused.py  `_fwd_kernel`  -> lstm_fwd_stack (all layers
 //     advance inside one time step; layers >= 1 project their input here)
 //
-// Per time step and layer, one launch of `lstm_step_kernel` computes
+// Per time step and layer they compute
 //   z = zx[t] (layer 0) or x_t . Wx (layers >= 1)  +  h_{t-1} . Wh  +  b
-// in fp32, applies the TF gates (i, j, f, o) with the +1 forget bias and the
-// masked carry (a PAD step holds h and c), and writes the fp32 state and the
-// ys/cs streams.  In train mode (a non-null `gates`) it also writes the gate
+// in fp32, apply the TF gates (i, j, f, o) with the +1 forget bias and the
+// masked carry (a PAD step holds h and c), and write the fp32 state and the
+// ys/cs streams.  In train mode (a non-null `gates`) they also write the gate
 // activations (sigmoid i, tanh j, sigmoid(f + 1), sigmoid o) of every step,
-// PAD steps included, in the stream dtype: the backward kernels
-// (lstm_bwd.cu) read them instead of recomputing z.  Serving passes null and
-// writes nothing more.  The product operands are rounded to the weight dtype first
-// (bf16 or fp32) and the products are summed in fp32, as the TPU kernels do
-// with preferred_element_type=float32.
+// PAD steps included: the backward kernels (lstm_bwd.cu) read them instead
+// of recomputing z.  The gates are stored in the stream dtype, or (the
+// per-layer kernels, gates code 1: lstm_pallas.py's FEWSHOT_LSTM_GATES_INT8
+// branch) affine-coded to int8, q = round(127 g') with round-half-even and
+// g' = 2 s - 1 for the sigmoids, tanh j as it is.  Serving passes null and
+// writes nothing more.  The product operands are rounded to the weight
+// dtype first (bf16 or fp32) and the products are summed in fp32, as the
+// TPU kernels do with preferred_element_type=float32.
 //
-// Design.  The TPU kernel keeps Wh resident in VMEM and walks time inside
-// one program.  An SM cannot hold Wh (2 MB at H=512 bf16), so here a block
-// owns a tile of ROWS batch rows and UNITS hidden units and computes all
-// four gate columns of those units, which keeps the cell update local to the
-// block.  Blocks of one step share nothing, so a step is one launch: the
-// launch boundary is the grid-wide barrier between steps.  h ping-pongs
-// between two fp32 buffers in device memory; c is updated in place (only
-// its owning thread reads it).
+// The step kernels (lstm_step_kernel).  An SM cannot hold Wh (2 MB at
+// H=512 bf16), so a block owns a tile of ROWS batch rows and UNITS hidden
+// units and computes all four gate columns of those units, which keeps the
+// cell update local to the block.  Blocks of one step share nothing, so a
+// step is one launch: the launch boundary is the grid-wide barrier between
+// steps.  h ping-pongs between two fp32 buffers in device memory; c is
+// updated in place (only its owning thread reads it).  A block stages the
+// whole contraction at once with cp.async, then each thread sums its
+// products in fp32 FMA.  Small batches (the state-mode support pass has 16
+// rows) use narrow unit tiles and split the contraction over KSPLIT thread
+// groups.  At 160 rows x 96 steps, H=512, a step costs ~39 us, of which
+// ~1 us is the launch (a CUDA graph of the 96 launches saves 0.11 of 3.85
+// ms): the per-step L2 reads of Wh and the SIMT products bound it.
 //
-// A block stages the whole contraction at once: its h rows and its Wh
-// columns go to shared memory with cp.async (all copies in flight together,
-// so one step pays the L2 latency once), then each thread sums its
-// products.  Small batches (the state-mode support pass has 16 rows) use
-// narrow unit tiles and split the contraction over KSPLIT thread groups, so
-// that about one block runs on every SM.
-//
-// Bound.  At the serving shapes a step is small (160 or 16 rows), so the
-// kernel is bound by per-step latency (launch, the L2 reads of Wh, the fp32
-// FMA loop), far above its device-memory or tensor-core bound.  A
-// persistent kernel with a grid barrier (Wh resident in shared memory across
-// steps) and tensor-core products are the next steps.
+// The persistent kernel (lstm_fwd_persist_kernel, lstm_cluster.cuh).  Batch
+// rows never interact, only the hidden units of one row do, so a row tile
+// of 32 rows runs on one thread-block cluster of NB = H / 32 blocks for all
+// T steps.  Block j keeps Wh[:, C_j] (its 32 units' 128 gate columns)
+// resident in shared memory and the fp32 h and c of its units in
+// registers.  Step t: z[rows, C_j] = zx + bf16(h_{t-1}) . Wh[:, C_j] + b on
+// mma.sync m16n8k16 (8 warps: 4 unit octets x 2 halves of the contraction),
+// the gates and the masked carry in the accumulators' own threads, then
+// bf16(h_t)[rows, U_j] is all-gathered through L2 and a cluster barrier
+// takes the place of the launch boundary (one a step).  Per-step latency
+// bounds it: the barrier, the 32 KB read back into every SM, the products
+// and the gates, one after the other, every step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include "lstm_cluster.cuh"
 
 namespace {
 
@@ -71,6 +84,19 @@ __device__ __forceinline__ float round_to(float x) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// A saved gate activation in the gates dtype G: the stream dtype holds the
+// activation, int8 its affine code round(127 g'), g' = 2 act - 1 for a
+// sigmoid, act for tanh j (round half to even, as jnp.round).
+template <typename G>
+__device__ __forceinline__ G gate_out(float act, bool sig) {
+  return from_float<G>(act);
+}
+template <>
+__device__ __forceinline__ int8_t gate_out<int8_t>(float act, bool sig) {
+  return static_cast<int8_t>(
+      __float2int_rn((sig ? 2.0f * act - 1.0f : act) * 127.0f));
 }
 
 __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
@@ -162,8 +188,9 @@ __device__ __forceinline__ void contract(const float* hs, const W* ws,
 // One time step of one layer.  zx [B, 4H] (layer 0) or x [B, H] with wx
 // [H, 4H] (in-kernel projection, layers >= 1); exactly one of the two is
 // given.  wh [H, 4H]; bias [4H]; mask [B]; h_prev/h_next/c [B, H] fp32;
-// ys/cs [B, H] and (optional) gates [B, 4H] in the stream dtype.
-template <typename W, typename S, int ROWS, int UNITS, int KSPLIT>
+// ys/cs [B, H] in the stream dtype S; (optional) gates [B, 4H] in G.
+template <typename W, typename S, typename G, int ROWS, int UNITS,
+          int KSPLIT>
 __global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads)
     lstm_step_kernel(const S* __restrict__ zx, const float* __restrict__ x,
                      const W* __restrict__ wx, const W* __restrict__ wh,
@@ -172,7 +199,7 @@ __global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads)
                      const float* __restrict__ h_prev,
                      float* __restrict__ h_next, float* __restrict__ c,
                      S* __restrict__ ys, S* __restrict__ cs,
-                     S* __restrict__ gates, int rows, int hidden) {
+                     G* __restrict__ gates, int rows, int hidden) {
   constexpr int kThreads = Tile<ROWS, UNITS, KSPLIT>::kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
   float* hs = reinterpret_cast<float*>(smem);
@@ -239,11 +266,11 @@ __global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads)
     const float sf = sigmoid(z[2] + 1.0f);  // in-cell forget bias
     const float so = sigmoid(z[3]);
     if (gates != nullptr) {
-      S* g = gates + (size_t)row * four_h + u;
-      g[0] = from_float<S>(si);
-      g[hidden] = from_float<S>(tj);
-      g[2 * (size_t)hidden] = from_float<S>(sf);
-      g[3 * (size_t)hidden] = from_float<S>(so);
+      G* g = gates + (size_t)row * four_h + u;
+      g[0] = gate_out<G>(si, true);
+      g[hidden] = gate_out<G>(tj, false);
+      g[2 * (size_t)hidden] = gate_out<G>(sf, true);
+      g[3 * (size_t)hidden] = gate_out<G>(so, true);
     }
     const size_t idx = (size_t)row * hidden + u;
     const float c_old = c[idx];
@@ -261,7 +288,8 @@ __global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads)
 }
 
 // One step launch with a fixed tile shape.
-template <typename W, typename S, int ROWS, int UNITS, int KSPLIT>
+template <typename W, typename S, typename G, int ROWS, int UNITS,
+          int KSPLIT>
 struct StepLauncher {
   using T = Tile<ROWS, UNITS, KSPLIT>;
   size_t smem = 0;
@@ -270,17 +298,17 @@ struct StepLauncher {
     smem = T::template smem_bytes<W>(hidden);
     if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
     return cudaFuncSetAttribute(
-        lstm_step_kernel<W, S, ROWS, UNITS, KSPLIT>,
+        lstm_step_kernel<W, S, G, ROWS, UNITS, KSPLIT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   }
 
   cudaError_t launch(const S* zx, const float* x, const W* wx, const W* wh,
                      const float* bias, const float* mask,
                      const float* h_prev, float* h_next, float* c, S* ys,
-                     S* cs, S* gates, int rows, int hidden,
+                     S* cs, G* gates, int rows, int hidden,
                      cudaStream_t stream) const {
     const dim3 grid(hidden / UNITS, (rows + ROWS - 1) / ROWS);
-    lstm_step_kernel<W, S, ROWS, UNITS, KSPLIT>
+    lstm_step_kernel<W, S, G, ROWS, UNITS, KSPLIT>
         <<<grid, T::kThreads, smem, stream>>>(zx, x, wx, wh, bias, mask,
                                               h_prev, h_next, c, ys, cs,
                                               gates, rows, hidden);
@@ -288,7 +316,7 @@ struct StepLauncher {
   }
 };
 
-template <typename W, typename S, typename L>
+template <typename W, typename S, typename G, typename L>
 cudaError_t run_layer_with(L& launcher, const void* zx_v, const void* wh_v,
                            const float* bias, const float* mask,
                            float* h_buf, float* c, void* ys_v, void* cs_v,
@@ -300,7 +328,7 @@ cudaError_t run_layer_with(L& launcher, const void* zx_v, const void* wh_v,
   const W* wh = static_cast<const W*>(wh_v);
   S* ys = static_cast<S*>(ys_v);
   S* cs = static_cast<S*>(cs_v);
-  S* gates = static_cast<S*>(gates_v);
+  G* gates = static_cast<G*>(gates_v);
   const size_t bh = (size_t)rows * hidden;
   for (int t = 0; t < steps; ++t) {
     err = launcher.launch(zx + (size_t)t * 4 * bh, nullptr, nullptr, wh,
@@ -355,10 +383,10 @@ cudaError_t run_stack_with(L& launcher, const void* zx_v, const void* wx_v,
 // Tile shapes: wide batches take 32-row tiles of 8 units; batches of at
 // most 16 rows (or hidden sizes whose wide tile does not fit in shared
 // memory) take 16-row tiles of 4 units with the contraction split 8 ways.
-using WideF = StepLauncher<float, float, 32, 8, 2>;
-using NarrowF = StepLauncher<float, float, 16, 4, 8>;
-using WideB = StepLauncher<__nv_bfloat16, __nv_bfloat16, 32, 8, 2>;
-using NarrowB = StepLauncher<__nv_bfloat16, __nv_bfloat16, 16, 4, 8>;
+template <typename W, typename G>
+using Wide = StepLauncher<W, W, G, 32, 8, 2>;
+template <typename W, typename G>
+using Narrow = StepLauncher<W, W, G, 16, 4, 8>;
 
 template <typename W>
 bool use_wide(int rows, int hidden) {
@@ -370,9 +398,340 @@ bool shape_ok(int rows, int hidden) {
   return rows > 0 && hidden > 0 && hidden % 32 == 0;
 }
 
+template <typename W, typename G>
+cudaError_t layer_with(const void* zx, const void* wh, const float* bias,
+                       const float* mask, float* h_buf, float* c, void* ys,
+                       void* cs, void* gates, int steps, int rows, int hidden,
+                       cudaStream_t st) {
+  if (use_wide<W>(rows, hidden)) {
+    Wide<W, G> l;
+    return run_layer_with<W, W, G>(l, zx, wh, bias, mask, h_buf, c, ys, cs,
+                                   gates, steps, rows, hidden, st);
+  }
+  Narrow<W, G> l;
+  return run_layer_with<W, W, G>(l, zx, wh, bias, mask, h_buf, c, ys, cs,
+                                 gates, steps, rows, hidden, st);
+}
+
+template <typename W>
+cudaError_t stack_with(const void* zx, const void* wx_rest, const void* wh,
+                       const float* bias, const float* mask, float* h_buf,
+                       float* c, void* ys, void* cs, void* gates, int steps,
+                       int rows, int hidden, int layers, cudaStream_t st) {
+  if (use_wide<W>(rows, hidden)) {
+    Wide<W, W> l;
+    return run_stack_with<W, W>(l, zx, wx_rest, wh, bias, mask, h_buf, c,
+                                ys, cs, gates, steps, rows, hidden, layers,
+                                st);
+  }
+  Narrow<W, W> l;
+  return run_stack_with<W, W>(l, zx, wx_rest, wh, bias, mask, h_buf, c, ys,
+                              cs, gates, steps, rows, hidden, layers, st);
+}
+
+// ---------------------------------------------------------------------------
+// The persistent bf16 kernel
+// ---------------------------------------------------------------------------
+
+namespace pc = lstm_cluster;
+using bf16 = __nv_bfloat16;
+
+// Shared memory of a block at H = 32 NB: the resident slice, the h buffer
+// (bf16, all H units of the tile's rows), the block's own bf16(h_t) before
+// the exchange (also its ys tile), the partial sums the two contraction
+// halves swap, and the step's gates tile in G (written out in 16-byte
+// pieces: a 2-byte store per gate took a visible share of the step).
+template <int NB, typename G>
+struct FwdSmem {
+  static constexpr int kHidden = NB * pc::kUnits;
+  static constexpr int kAPitch = kHidden + 8;     // bf16 per h row
+  static constexpr size_t kWs = (size_t)kHidden * pc::kWsPitch * 2;
+  static constexpr size_t kA = (size_t)pc::kRows * kAPitch * 2;
+  static constexpr size_t kHs = (size_t)pc::kRows * pc::kUnits * 2;
+  // [m tile][gate][entry][4 octets x 32 lanes] fp32
+  static constexpr size_t kRed = (size_t)2 * 16 * 128 * 4;
+  static constexpr size_t kG = (size_t)pc::kRows * pc::kCols * sizeof(G);
+  static constexpr size_t kBytes = kWs + kA + kHs + kRed + kG;
+  static_assert(kBytes <= (size_t)kMaxSmem, "forward slice does not fit");
+};
+
+// zx [T, B, 4H], wh [H, 4H], ys/cs [T, B, H] bf16; bias [4H], mask [T, B],
+// h0/c0/hT/cT [B, H] fp32; gates [T, B, 4H] in G, or null; xh, the
+// exchange: [2 (step parity)][row tiles][rows][H] bf16.  Grid (NB, row
+// tiles) in clusters of (NB, 1).
+//
+// The all-gather goes through L2: each block writes its bf16(h_t)[rows,
+// U_j] into the step's half of xh, a cluster barrier (release / acquire)
+// orders the writes, and every block copies the whole [rows, H] tile into
+// its h buffer (cp.async.cg) before the next step's products; pushed into
+// the peers' shared memory with st.shared::cluster instead, the same bytes
+// took longer.  The halves alternate by step, so one barrier a step
+// suffices.
+//
+// Warp w = 4 kh + q owns unit octet q (units 8q..8q+7 of the block, their
+// four gates: slice columns [32 q, 32 q + 32)) and contraction half kh, for
+// both 16-row m tiles.  The two halves swap partial sums through shared
+// memory, then warp (q, kh) finishes m tile kh: lane (gl, tl) = (lane / 4,
+// lane % 4) owns rows 16 kh + gl and 16 kh + gl + 8 and units 8q + 2tl,
+// 8q + 2tl + 1, the accumulator entries of its four n-fragments (one per
+// gate) for those four (row, unit) pairs, and their h and c in registers.
+template <int NB, typename G>
+__global__ void __launch_bounds__(pc::kThreads, 1)
+    lstm_fwd_persist_kernel(const bf16* __restrict__ zx,
+                            const bf16* __restrict__ wh,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ mask,
+                            const float* __restrict__ h0,
+                            const float* __restrict__ c0,
+                            bf16* __restrict__ ys, bf16* __restrict__ cs,
+                            G* __restrict__ gates, float* __restrict__ hT,
+                            float* __restrict__ cT, bf16* __restrict__ xh,
+                            int steps, int rows) {
+  using Sm = FwdSmem<NB, G>;
+  constexpr int H = Sm::kHidden, P = Sm::kAPitch;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ws = reinterpret_cast<bf16*>(smem);
+  bf16* abuf = reinterpret_cast<bf16*>(smem + Sm::kWs);
+  bf16* hs = reinterpret_cast<bf16*>(smem + Sm::kWs + Sm::kA);
+  float* red = reinterpret_cast<float*>(smem + Sm::kWs + Sm::kA + Sm::kHs);
+  G* gtile = reinterpret_cast<G*>(smem + Sm::kWs + Sm::kA + Sm::kHs +
+                                  Sm::kRed);     // [rows][gate][unit]
+  // this tile's exchange rows in each half of xh
+  const size_t xhalf = (size_t)gridDim.y * pc::kRows * H;
+  bf16* xtile = xh + (size_t)blockIdx.y * pc::kRows * H;
+  const unsigned me = pc::rank();
+  const int u0 = me * pc::kUnits;
+  const int row0 = blockIdx.y * pc::kRows;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int q = warp % 4, kh = warp / 4;
+  const int gl = lane / 4, tl = lane % 4;
+  const int ucol = 8 * q + 2 * tl;           // this lane's first unit
+  // this thread's rows, index hf: tile rows 16 kh + 8 hf + gl
+  int rloc[2], rglob[2];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    rloc[hf] = 16 * kh + 8 * hf + gl;
+    rglob[hf] = row0 + rloc[hf];
+  }
+
+  pc::stage_slice(wh, H, u0, ws);
+  // bf16(h0) of the tile's rows, all H units, into the h buffer
+  for (int e = tid; e < pc::kRows * H / 4; e += pc::kThreads) {
+    const int r = e / (H / 4), k = 4 * (e % (H / 4));
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (row0 + r < rows)
+      v = *reinterpret_cast<const float4*>(h0 + (size_t)(row0 + r) * H + k);
+    *reinterpret_cast<uint2*>(abuf + r * P + k) =
+        make_uint2(mma::pack_bf16(v.x, v.y), mma::pack_bf16(v.z, v.w));
+  }
+  // the fp32 state [hf][ui] and the bias [gate][ui] of this thread's pairs
+  float h[2][2], c[2][2], b[4][2];
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int ui = 0; ui < 2; ++ui) b[g][ui] = bias[g * H + u0 + ucol + ui];
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+    for (int ui = 0; ui < 2; ++ui) {
+      const bool ok = rglob[hf] < rows;
+      const size_t idx = (size_t)rglob[hf] * H + u0 + ucol + ui;
+      h[hf][ui] = ok ? h0[idx] : 0.f;
+      c[hf][ui] = ok ? c0[idx] : 0.f;
+    }
+  mma::cp_async_wait<0>();
+  __syncthreads();
+
+  const size_t four_h = 4 * (size_t)H;
+  // zx[t] and mask[t] of this thread's pairs ([hf][gate]: a bf16 pair),
+  // loaded a step ahead
+  uint32_t zn[2][4];
+  float mn[2];
+  auto load_zx = [&](int t) {
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const bool ok = t < steps && rglob[hf] < rows;
+      const bf16* zr =
+          zx + ((size_t)t * rows + rglob[hf]) * four_h + u0 + ucol;
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        zn[hf][g] = ok ? *reinterpret_cast<const uint32_t*>(zr + g * H) : 0u;
+      mn[hf] = ok ? mask[(size_t)t * rows + rglob[hf]] : 0.f;
+    }
+  };
+  load_zx(0);
+  for (int t = 0; t < steps; ++t) {
+    if (t > 0) {  // bf16(h_{t-1}) of the whole tile, from xh's half
+      const bf16* src = xtile + ((t - 1) & 1) * xhalf;
+      for (int e = tid; e < pc::kRows * H / 8; e += pc::kThreads) {
+        const int r = e / (H / 8), k = 8 * (e % (H / 8));
+        mma::cp_async16(abuf + r * P + k, src + (size_t)r * H + k);
+      }
+      mma::cp_async_commit();
+      mma::cp_async_wait<0>();
+      __syncthreads();
+    }
+    uint32_t zv[2][4];
+    float mv[2];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      mv[hf] = mn[hf];
+#pragma unroll
+      for (int g = 0; g < 4; ++g) zv[hf][g] = zn[hf][g];
+    }
+    load_zx(t + 1);                            // in flight over this step
+    // bf16(h_{t-1}) . Wh over this warp's half of the contraction
+    float acc[2][4][4] = {};
+    const int kbeg = kh * (H / 2);
+#pragma unroll 4
+    for (int k0 = kbeg; k0 < kbeg + H / 2; k0 += 16) {
+      uint32_t af[2][4], bfr[2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+        mma::ldsm_x4(af[m], abuf + (16 * m + mma::a_row(lane)) * P + k0 +
+                                mma::a_col(lane));
+#pragma unroll
+      for (int pr = 0; pr < 2; ++pr)
+        mma::ldsm_x4_trans(bfr[pr], ws + (size_t)(k0 + mma::bk_row(lane)) *
+                                             pc::kWsPitch +
+                                         32 * q + 16 * pr + mma::bk_col(lane));
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          mma::mma_bf16(acc[m][g], af[m], bfr[g / 2][2 * (g % 2)],
+                        bfr[g / 2][2 * (g % 2) + 1]);
+    }
+    // hand the other m tile's partial to the warp that finishes it (kh
+    // selects by value: indexing acc by it would put acc in local memory)
+    float* mine = red + (size_t)kh * 16 * 128 + q * 32 + lane;
+    float* other = red + (size_t)(1 - kh) * 16 * 128 + q * 32 + lane;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        other[(g * 4 + e) * 128] = kh == 0 ? acc[1][g][e] : acc[0][g][e];
+    __syncthreads();
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      float act[4][2];
+#pragma unroll
+      for (int ui = 0; ui < 2; ++ui) {
+        float z[4];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const int e = 2 * hf + ui;
+          const float prod = kh == 0 ? acc[0][g][e] + mine[(g * 4 + e) * 128]
+                                     : mine[(g * 4 + e) * 128] + acc[1][g][e];
+          const uint32_t zp = zv[hf][g];       // bf16 pair, as bits
+          const float zxv = __uint_as_float(ui ? zp & 0xffff0000u : zp << 16);
+          z[g] = (zxv + prod) + b[g][ui];
+        }
+        act[0][ui] = sigmoid(z[0]);
+        act[1][ui] = tanhf(z[1]);
+        act[2][ui] = sigmoid(z[2] + 1.0f);    // in-cell forget bias
+        act[3][ui] = sigmoid(z[3]);
+        const float c_new = act[2][ui] * c[hf][ui] + act[0][ui] * act[1][ui];
+        const float h_new = act[3][ui] * tanhf(c_new);
+        if (mv[hf] > 0.0f) {
+          h[hf][ui] = h_new;
+          c[hf][ui] = c_new;
+        }
+      }
+      *reinterpret_cast<uint32_t*>(hs + rloc[hf] * pc::kUnits + ucol) =
+          mma::pack_bf16(h[hf][0], h[hf][1]);
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        G* gp = gtile + rloc[hf] * pc::kCols + g * pc::kUnits + ucol;
+        gp[0] = gate_out<G>(act[g][0], g != 1);
+        gp[1] = gate_out<G>(act[g][1], g != 1);
+      }
+      if (rglob[hf] < rows)
+        *reinterpret_cast<uint32_t*>(
+            cs + ((size_t)t * rows + rglob[hf]) * H + u0 + ucol) =
+            mma::pack_bf16(c[hf][0], c[hf][1]);
+    }
+    __syncthreads();  // hs and the gates tile complete; red read
+    // ys (= hs) and the gates of the tile's rows, in 16-byte pieces
+    for (int e = tid; e < pc::kRows * 4; e += pc::kThreads) {
+      const int r = e / 4, o = e % 4;
+      if (row0 + r < rows)
+        *reinterpret_cast<uint4*>(ys + ((size_t)t * rows + row0 + r) * H +
+                                  u0 + 8 * o) =
+            *reinterpret_cast<const uint4*>(hs + r * pc::kUnits + 8 * o);
+    }
+    if (gates != nullptr) {
+      constexpr int kPer = 16 / sizeof(G);           // gates a piece
+      constexpr int kRowPieces = pc::kCols / kPer;
+      for (int e = tid; e < pc::kRows * kRowPieces; e += pc::kThreads) {
+        const int r = e / kRowPieces, col = (e % kRowPieces) * kPer;
+        if (row0 + r < rows)
+          *reinterpret_cast<uint4*>(
+              gates + ((size_t)t * rows + row0 + r) * four_h +
+              (size_t)(col / pc::kUnits) * H + u0 + col % pc::kUnits) =
+              *reinterpret_cast<const uint4*>(gtile + r * pc::kCols + col);
+      }
+    }
+    if (t + 1 == steps) break;
+    // bf16(h_t)[rows, U_j], 128 pieces of 16 bytes, into xh's half
+    if (tid < pc::kRows * 4) {
+      const int r = tid / 4, o = tid % 4;
+      __stcg(reinterpret_cast<uint4*>(xtile + (t & 1) * xhalf +
+                                      (size_t)r * H + u0 + 8 * o),
+             *reinterpret_cast<const uint4*>(hs + r * pc::kUnits + 8 * o));
+    }
+    pc::sync();  // h_t in L2 for the whole cluster
+  }
+#pragma unroll
+  for (int hf = 0; hf < 2; ++hf) {
+    if (rglob[hf] >= rows) continue;
+    const size_t idx = (size_t)rglob[hf] * H + u0 + ucol;
+    *reinterpret_cast<float2*>(hT + idx) = make_float2(h[hf][0], h[hf][1]);
+    *reinterpret_cast<float2*>(cT + idx) = make_float2(c[hf][0], c[hf][1]);
+  }
+}
+
+template <int NB, typename G>
+cudaError_t persist_with(const void* zx, const void* wh, const float* bias,
+                         const float* mask, const float* h0, const float* c0,
+                         void* ys, void* cs, void* gates, float* hT,
+                         float* cT, void* xh, int steps, int rows,
+                         cudaStream_t st) {
+  return pc::launch(lstm_fwd_persist_kernel<NB, G>, NB, rows,
+                    FwdSmem<NB, G>::kBytes, st, static_cast<const bf16*>(zx),
+                    static_cast<const bf16*>(wh), bias, mask, h0, c0,
+                    static_cast<bf16*>(ys), static_cast<bf16*>(cs),
+                    static_cast<G*>(gates), hT, cT, static_cast<bf16*>(xh),
+                    steps, rows);
+}
+
+template <typename G>
+cudaError_t persist(const void* zx, const void* wh, const float* bias,
+                    const float* mask, const float* h0, const float* c0,
+                    void* ys, void* cs, void* gates, float* hT, float* cT,
+                    void* xh, int steps, int rows, int hidden,
+                    cudaStream_t st) {
+  switch (hidden / pc::kUnits) {
+    case 4:
+      return persist_with<4, G>(zx, wh, bias, mask, h0, c0, ys, cs, gates,
+                                hT, cT, xh, steps, rows, st);
+    case 8:
+      return persist_with<8, G>(zx, wh, bias, mask, h0, c0, ys, cs, gates,
+                                hT, cT, xh, steps, rows, st);
+    case 12:
+      return persist_with<12, G>(zx, wh, bias, mask, h0, c0, ys, cs, gates,
+                                 hT, cT, xh, steps, rows, st);
+    case 16:
+      return persist_with<16, G>(zx, wh, bias, mask, h0, c0, ys, cs, gates,
+                                 hT, cT, xh, steps, rows, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // dtype: 0 = fp32 weights and streams, 1 = bf16 weights and streams.
+// gates_code: 0 = gates in the stream dtype, 1 = int8 coded.
 // h_buf [2, B, H] holds h0 in slot 0 on entry; after `steps` steps the final
 // h is in slot steps % 2.  c [B, H] holds c0 on entry and cT on return.
 // gates [T, B, 4H] or null (serving).
@@ -381,32 +740,72 @@ extern "C" int lstm_fwd_layer(const void* zx, const void* wh,
                               const float* bias, const float* mask,
                               float* h_buf, float* c, void* ys, void* cs,
                               void* gates, int steps, int rows, int hidden,
-                              int dtype, void* stream) {
-  if (!shape_ok(rows, hidden)) return cudaErrorInvalidValue;
+                              int dtype, int gates_code, void* stream) {
+  if (!shape_ok(rows, hidden) || (gates_code != 0 && gates_code != 1))
+    return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    if (use_wide<float>(rows, hidden)) {
-      WideF l;
-      return run_layer_with<float, float>(l, zx, wh, bias, mask, h_buf, c,
-                                          ys, cs, gates, steps, rows, hidden,
-                                          st);
-    }
-    NarrowF l;
-    return run_layer_with<float, float>(l, zx, wh, bias, mask, h_buf, c, ys,
-                                        cs, gates, steps, rows, hidden, st);
+    if (gates_code == 1)
+      return layer_with<float, int8_t>(zx, wh, bias, mask, h_buf, c, ys, cs,
+                                       gates, steps, rows, hidden, st);
+    return layer_with<float, float>(zx, wh, bias, mask, h_buf, c, ys, cs,
+                                    gates, steps, rows, hidden, st);
   }
   if (dtype == 1) {
-    using B = __nv_bfloat16;
-    if (use_wide<B>(rows, hidden)) {
-      WideB l;
-      return run_layer_with<B, B>(l, zx, wh, bias, mask, h_buf, c, ys, cs,
+    if (gates_code == 1)
+      return layer_with<bf16, int8_t>(zx, wh, bias, mask, h_buf, c, ys, cs,
+                                      gates, steps, rows, hidden, st);
+    return layer_with<bf16, bf16>(zx, wh, bias, mask, h_buf, c, ys, cs,
                                   gates, steps, rows, hidden, st);
-    }
-    NarrowB l;
-    return run_layer_with<B, B>(l, zx, wh, bias, mask, h_buf, c, ys, cs,
-                                gates, steps, rows, hidden, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// 1 where lstm_fwd_persist and lstm_bwd_persist take (rows, hidden, dtype).
+extern "C" int lstm_persist_ok(int rows, int hidden, int dtype) {
+  return pc::persist_ok(rows, hidden, dtype) ? 1 : 0;
+}
+
+// The persistent kernel (bf16 only): zx [T, B, 4H], wh [H, 4H], bias [4H],
+// mask [T, B], h0/c0 [B, H] fp32 (read only); ys/cs [T, B, H]; gates
+// [T, B, 4H] (gates_code 0: bf16, 1: int8) or null; hT/cT [B, H] fp32;
+// xh: 2 x 32 ceil(B / 32) x H bf16 of scratch.
+extern "C" int lstm_fwd_persist(const void* zx, const void* wh,
+                                const float* bias, const float* mask,
+                                const float* h0, const float* c0, void* ys,
+                                void* cs, void* gates, float* hT, float* cT,
+                                void* xh, int steps, int rows, int hidden,
+                                int dtype, int gates_code, void* stream) {
+  if (!pc::persist_ok(rows, hidden, dtype) || steps < 0 ||
+      (gates_code != 0 && gates_code != 1))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (gates_code == 1)
+    return persist<int8_t>(zx, wh, bias, mask, h0, c0, ys, cs, gates, hT, cT,
+                           xh, steps, rows, hidden, st);
+  return persist<bf16>(zx, wh, bias, mask, h0, c0, ys, cs, gates, hT, cT, xh,
+                       steps, rows, hidden, st);
+}
+
+// How many clusters of the persistent forward kernel at this hidden size
+// the card runs at once (cudaOccupancyMaxActiveClusters; -1 on error).
+extern "C" int lstm_fwd_persist_clusters(int hidden) {
+  if (!pc::persist_ok(1, hidden, 1)) return -1;
+  switch (hidden / pc::kUnits) {
+    case 4:
+      return pc::max_clusters(lstm_fwd_persist_kernel<4, bf16>, 4,
+                              FwdSmem<4, bf16>::kBytes);
+    case 8:
+      return pc::max_clusters(lstm_fwd_persist_kernel<8, bf16>, 8,
+                              FwdSmem<8, bf16>::kBytes);
+    case 12:
+      return pc::max_clusters(lstm_fwd_persist_kernel<12, bf16>, 12,
+                              FwdSmem<12, bf16>::kBytes);
+    case 16:
+      return pc::max_clusters(lstm_fwd_persist_kernel<16, bf16>, 16,
+                              FwdSmem<16, bf16>::kBytes);
+  }
+  return -1;
 }
 
 // Whole stack of L >= 2 layers: zx [T, B, 4H] (layer 0), wx_rest
@@ -421,30 +820,11 @@ extern "C" int lstm_fwd_stack(const void* zx, const void* wx_rest,
                               void* stream) {
   if (!shape_ok(rows, hidden) || layers < 2) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    if (use_wide<float>(rows, hidden)) {
-      WideF l;
-      return run_stack_with<float, float>(l, zx, wx_rest, wh, bias, mask,
-                                          h_buf, c, ys, cs, gates, steps,
-                                          rows, hidden, layers, st);
-    }
-    NarrowF l;
-    return run_stack_with<float, float>(l, zx, wx_rest, wh, bias, mask,
-                                        h_buf, c, ys, cs, gates, steps, rows,
-                                        hidden, layers, st);
-  }
-  if (dtype == 1) {
-    using B = __nv_bfloat16;
-    if (use_wide<B>(rows, hidden)) {
-      WideB l;
-      return run_stack_with<B, B>(l, zx, wx_rest, wh, bias, mask, h_buf, c,
-                                  ys, cs, gates, steps, rows, hidden, layers,
-                                  st);
-    }
-    NarrowB l;
-    return run_stack_with<B, B>(l, zx, wx_rest, wh, bias, mask, h_buf, c,
-                                ys, cs, gates, steps, rows, hidden, layers,
-                                st);
-  }
+  if (dtype == 0)
+    return stack_with<float>(zx, wx_rest, wh, bias, mask, h_buf, c, ys, cs,
+                             gates, steps, rows, hidden, layers, st);
+  if (dtype == 1)
+    return stack_with<bf16>(zx, wx_rest, wh, bias, mask, h_buf, c, ys, cs,
+                            gates, steps, rows, hidden, layers, st);
   return cudaErrorInvalidValue;
 }

@@ -165,8 +165,8 @@ def test_library_name_follows_sources_and_headers(tmp_path, edited):
     assert before == {n: _ext.library_path(n) for n in _ext.SIGNATURES}
     users = {n for n in _ext.SIGNATURES
              if edited in {f.name for f in _ext.sources(n, csrc)}}
-    assert users == ({"head_ce", "prefix_attn"} if edited == "mma.cuh"
-                     else {"head_ce"})
+    assert users == ({"head_ce", "prefix_attn", "lstm_fwd", "lstm_bwd"}
+                     if edited == "mma.cuh" else {"head_ce"})
     f = csrc / edited
     f.write_bytes(f.read_bytes() + b"\n// edited\n")
     after = {n: _ext.library_path(n, csrc) for n in _ext.SIGNATURES}
@@ -187,3 +187,17 @@ def test_prefix_attention_sources_have_no_atomics():
         assert not _ATOMIC.search(code), f
     assert _ATOMIC.search("atomicAdd(dq + i, x);")
     assert _ATOMIC.search('asm("red.global.add.f32 [%0], %1;")')
+
+
+def test_lstm_sources_have_no_atomics():
+    """No atomic (in C++ or PTX) outside comments in the LSTM kernels'
+    sources or the headers they include: the persistent backward sums the
+    dh partials of a cluster's blocks in a fixed order and each row tile's
+    db in registers, so it gives the same bits on every launch."""
+    files = {f for name in ("lstm_fwd", "lstm_bwd")
+             for f in _ext.sources(name)}
+    assert {f.name for f in files} == {"lstm_fwd.cu", "lstm_bwd.cu",
+                                       "lstm_cluster.cuh", "mma.cuh"}
+    for f in files:
+        code = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read_text(), flags=re.S)
+        assert not _ATOMIC.search(code), f
