@@ -4,17 +4,18 @@ card.
 
 Run from the repository root:  python3 chip_smoke.py
 (python3 chip_smoke.py --lstm-split: only the one-off measurement of
-kernels 1-2 (both routes) and 3-4 launched eagerly against a CUDA graph,
-beside cuDNN; one JSON line.)
+kernels 1-2 and 3-4 (both routes each) launched eagerly against a CUDA
+graph, beside cuDNN; one JSON line.)
 
 Phases, each of which exits non-zero on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from fewshot_torch/ops/csrc (one nvcc per
      source, all started together; sm_90a), and count the tensor-core
-     (HMMA) instructions in the SASS of the six bf16 tensor-core kernels
-     (the persistent LSTM forward and backward, the head+CE backward, the
-     prefix-attention forward, dq and dk/dv); a kernel with none, or one
-     that spills registers (ptxas -v), fails the run;
+     (HMMA) instructions in the SASS of the eight bf16 tensor-core kernels
+     (the persistent LSTM forward and backward, per layer and for the
+     stack, the head+CE backward, the prefix-attention forward, dq and
+     dk/dv); a kernel with none, or one that spills registers (ptxas -v),
+     fails the run;
   3. each recurrence kernel against its plain PyTorch twin at full width
      (E=256, H=512, 2 layers; bf16 and fp32; ragged masks): the two
      forward kernels (and their train-mode gate activations) and the two
@@ -27,13 +28,17 @@ Phases, each of which exits non-zero on failure:
      kernels) also the int8-gates mode (codes within one step of the
      twin's), the same state in both gates modes, the same bits from a
      second launch, the step kernels (v1) timed on the same inputs, and
-     the clusters the card runs at once;
+     the clusters the card runs at once; for the stack pair in bf16 (the
+     persistent layer wavefront) the same at both of training B's shapes
+     (16 rows x 480 steps and 80 x 95, two launches a call), with the
+     row tiles a launch holds;
   4. serving phase A, the bench config (support_mode=mean_state, batch 32,
      the per-layer kernel): an HTTP server answers concurrent /generate
      requests; the per-layer kernel's launch count must rise, all on its
      persistent route;
   5. serving phase B, the shipped config (support_mode=state, batch 16,
-     the fused-stack kernel); the fused kernel's launch count must rise;
+     the fused-stack kernel); the fused kernel's launch count must rise,
+     all on its persistent route;
   6. training phase A, the bench config as bench.py trains it (B=32, 10
      steps per call, 2 warm-up calls, 4 timed calls): episodes/s, the
      loss of the first step and of the first and last calls (finite; the
@@ -43,7 +48,9 @@ Phases, each of which exits non-zero on failure:
      persistent route; then training A-int8, the same with the int8-gates
      branch (FEWSHOT_LSTM_GATES_INT8) for 3 calls;
   7. training phase B, the shipped config (support_mode=state, B=16): the
-     fused-stack forward and backward kernels' counts must rise;
+     fused-stack forward and backward kernels must launch 2 times a step
+     each (the support pass and the query pass), on their persistent
+     route;
   8. the V=5000 synthetic lyrics corpus, then the fused head+CE forward
      and backward kernels against their twins at training C's head shape
      (R = B*Q*(L-1) rows, D=256, V=5000, neither a multiple of the 64-wide
@@ -544,41 +551,118 @@ def kernel_phase(dev) -> dict:
             records.update(layer_persist_checks(
                 args, bargs, 2.0 * live * H * 4 * H, dtype,
                 records[("layer", dtype)]))
-        # kernels 3 and 4: state support pass, 16 episodes x 5 songs x L=96
-        t_, rows = 480, 16
-        mask = ragged_mask(gen, t_, rows, 5).to(dev)
-        live = float(mask.sum())
-        args = (rand(t_, rows, 4 * H, scale=0.6).to(dtype),
-                unif(LAYERS - 1, H, 4 * H).to(dtype),
-                unif(LAYERS, H, 4 * H).to(dtype),
-                rand(LAYERS, 4 * H, scale=0.1), mask,
-                rand(LAYERS, rows, H, scale=0.5),
-                rand(LAYERS, rows, H, scale=0.5))
-        # per live step: h.Wh for every layer, x.Wx for layers >= 1 (the
-        # backward: dz.Wh^T and dz.Wx^T, the same count)
-        ops = 2.0 * live * H * 4 * H * (2 * LAYERS - 1)
-        yard = lambda: cudnn_lstm_ms(args[2], args[3], t_, rows, E,  # noqa
-                                     LAYERS, dtype)
-        records[("stack", dtype)] = check_kernel(
-            "lstm_stack_fwd", lstm_stack.lstm_stack_fwd,
-            lstm_stack.lstm_stack_fwd_plain, args, FWD_TOL[dtype], False,
-            ops, dtype, yard)
-        records[("stack", dtype)]["gates_max_abs_err"] = gates_err(
-            "lstm_stack_fwd", lstm_stack.lstm_stack_fwd,
-            lstm_stack.lstm_stack_fwd_plain, args, dtype)
-        with torch.no_grad():
-            _, cs, _, _, gates = lstm_stack.lstm_stack_fwd(*args,
-                                                           save_gates=True)
-        bargs = (gates, args[1], args[2], mask, cs, args[6],
-                 rand(t_, rows, H).to(dtype), rand(LAYERS, rows, H),
-                 rand(LAYERS, rows, H))
-        records[("stack_bwd", dtype)] = check_kernel(
-            "lstm_stack_bwd", lstm_stack.lstm_stack_bwd,
-            lstm_stack.lstm_stack_bwd_plain, bargs, [BWD_TOL[dtype]] * 4,
-            True, ops, dtype,
-            lambda: cudnn_lstm_ms(args[2], args[3], t_, rows, E, LAYERS,
-                                  dtype, backward=True))
+        # kernels 3 and 4: state support pass, 16 episodes x 5 songs x L=96,
+        # and (bf16, the persistent route) the query pass, 16 x 5 songs x
+        # L-1 = 95 steps
+        shapes = (("stack", 480, 16, 5), ("stack_query", 95, 80, 1))
+        for key, t_, rows, songs in shapes[:1 if dtype == torch.float32
+                                           else 2]:
+            records.update(stack_checks(key, t_, rows, songs, dtype, rand,
+                                        unif, gen, dev))
     return records
+
+
+def stack_checks(key, t_, rows, songs, dtype, rand, unif, gen, dev) -> dict:
+    """Kernels 3 and 4 at one of training B's shapes against their twins,
+    with cuDNN's yardstick; on their persistent route (bf16) also the same
+    bits from a second launch, the step kernels (v1) timed on the same
+    inputs, and how many row tiles a launch holds (one launch per
+    stack_row_splits range).  Returns records keyed as kernel_phase's."""
+    from functools import partial
+    from fewshot_torch.ops import lstm_stack
+    mask = ragged_mask(gen, t_, rows, songs).to(dev)
+    live = float(mask.sum())
+    args = (rand(t_, rows, 4 * H, scale=0.6).to(dtype),
+            unif(LAYERS - 1, H, 4 * H).to(dtype),
+            unif(LAYERS, H, 4 * H).to(dtype),
+            rand(LAYERS, 4 * H, scale=0.1), mask,
+            rand(LAYERS, rows, H, scale=0.5),
+            rand(LAYERS, rows, H, scale=0.5))
+    # per live step: h.Wh for every layer, x.Wx for layers >= 1 (the
+    # backward: dz.Wh^T and dz.Wx^T, the same count)
+    ops = 2.0 * live * H * 4 * H * (2 * LAYERS - 1)
+    yard = lambda: cudnn_lstm_ms(args[2], args[3], t_, rows, E,  # noqa
+                                 LAYERS, dtype)
+    fwd = check_kernel("lstm_stack_fwd", lstm_stack.lstm_stack_fwd,
+                       lstm_stack.lstm_stack_fwd_plain, args, FWD_TOL[dtype],
+                       False, ops, dtype, yard)
+    fwd["gates_max_abs_err"] = gates_err(
+        "lstm_stack_fwd", lstm_stack.lstm_stack_fwd,
+        lstm_stack.lstm_stack_fwd_plain, args, dtype)
+    with torch.no_grad():
+        _, cs, _, _, gates = lstm_stack.lstm_stack_fwd(*args, save_gates=True)
+    bargs = (gates, args[1], args[2], mask, cs, args[6],
+             rand(t_, rows, H).to(dtype), rand(LAYERS, rows, H),
+             rand(LAYERS, rows, H))
+    bwd = check_kernel(
+        "lstm_stack_bwd", lstm_stack.lstm_stack_bwd,
+        lstm_stack.lstm_stack_bwd_plain, bargs, [BWD_TOL[dtype]] * 4, True,
+        ops, dtype, lambda: cudnn_lstm_ms(args[2], args[3], t_, rows, E,
+                                          LAYERS, dtype, backward=True))
+    recs = {(key, dtype): fwd, (key.replace("stack", "stack_bwd"), dtype): bwd}
+    route = "persistent" if lstm_stack.stack_persistent_route(
+        rows, H, LAYERS, dtype) else "step"
+    fwd["route"] = bwd["route"] = route
+    if route == "step":
+        return recs
+    none = lambda: None                                          # noqa
+    checks = {
+        "fwd_deterministic": same_bits(
+            lambda: lstm_stack.lstm_stack_fwd(*args, save_gates=True)),
+        "bwd_deterministic": same_bits(
+            lambda: lstm_stack.lstm_stack_bwd(*bargs))}
+    log(f"  persistent stack {rows} x {t_} {dtype}: {checks}")
+    if not all(checks.values()):
+        raise RuntimeError(f"persistent stack kernels {dtype}: {checks}")
+    fwd["v1"] = check_kernel(
+        "lstm_stack_fwd (step kernels)",
+        partial(lstm_stack.lstm_stack_fwd, route="step"),
+        lstm_stack.lstm_stack_fwd_plain, args, FWD_TOL[dtype], False, ops,
+        dtype, none)
+    bwd["v1"] = check_kernel(
+        "lstm_stack_bwd (step kernels)",
+        partial(lstm_stack.lstm_stack_bwd, route="step"),
+        lstm_stack.lstm_stack_bwd_plain, bargs, [BWD_TOL[dtype]] * 4, True,
+        ops, dtype, none)
+    calls = {"fwd": lambda: lstm_stack.lstm_stack_fwd(*args,
+                                                      save_gates=True),
+             "bwd": lambda: lstm_stack.lstm_stack_bwd(*bargs)}
+    for rec, kernel, name in ((fwd, "lstm_fwd", "fwd"),
+                              (bwd, "lstm_bwd", "bwd")):
+        tiles = lstm_stack.launch_tiles(kernel, H, LAYERS, dev)
+        rec.update(checks, tiles_per_launch=tiles,
+                   launches_per_call=len(lstm_stack.stack_row_splits(
+                       rows, tiles)))
+        log(f"  persistent stack {name}: {tiles} row tiles a launch, "
+            f"{rec['launches_per_call']} launch(es) a call at {rows} rows")
+        if rec["launches_per_call"] > 1:
+            rec["oversize_launch_refused"] = oversize_refused(
+                calls[name], lambda *a, n=tiles: n + 1)
+    return recs
+
+
+def oversize_refused(call, tiles) -> bool:
+    """A persistent stack launch of more row tiles than the card holds at
+    once (launch_tiles replaced by `tiles` for one call) is refused by the
+    cooperative launch, the wrapper raises, and the next call runs."""
+    from fewshot_torch.ops import lstm_stack
+    real = lstm_stack.launch_tiles
+    lstm_stack.launch_tiles = tiles
+    try:
+        with torch.no_grad():
+            call()
+        refused = False
+    except RuntimeError as e:
+        refused = "CUDA error 720" in str(e)
+    finally:
+        lstm_stack.launch_tiles = real
+    with torch.no_grad():
+        call()
+    torch.cuda.synchronize()
+    log(f"  a launch past co-residency refused: {refused}")
+    if not refused:
+        raise RuntimeError("an oversize persistent stack launch ran")
+    return refused
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -646,9 +730,11 @@ def lstm_launch_split(dev) -> dict:
 
 def stack_launch_split(dev, gen) -> dict:
     """Kernels 3-4 at training B's shape (16 rows x 480 steps, 2 layers,
-    H=512, bf16), as lstm_launch_split: eagerly and from a CUDA graph, the
-    host's wall time, and cuDNN's yardstick (2 layers, input width E)."""
-    from fewshot_torch.ops import lstm_stack
+    H=512, bf16) on each route, as lstm_launch_split: eagerly and from a
+    CUDA graph, the host's wall time, and cuDNN's yardstick (2 layers,
+    input width E); and one layer's recurrence alone on kernels 1-2's
+    persistent route at the same shape."""
+    from fewshot_torch.ops import lstm_layer, lstm_stack
     dtype, t_, rows = torch.bfloat16, 480, 16
     lim = (6.0 / (5 * H)) ** 0.5
     mask = ragged_mask(gen, t_, rows, 5).to(dev)
@@ -664,18 +750,38 @@ def stack_launch_split(dev, gen) -> dict:
     dys = torch.randn((t_, rows, H), generator=gen).to(dev, dtype)
     out = {"shape": [LAYERS, t_, rows, H], "dtype": "bfloat16"}
     with torch.no_grad():
-        def fwd():
-            return lstm_stack.lstm_stack_fwd(zx, wx, wh, b, mask, h0, c0,
-                                             save_gates=True)
-        _, cs, _, _, gates = fwd()
+        for route in lstm_stack.ROUTES:
+            def fwd(r=route):
+                return lstm_stack.lstm_stack_fwd(zx, wx, wh, b, mask, h0, c0,
+                                                 save_gates=True, route=r)
+            _, cs, _, _, gates = fwd()
 
-        def bwd():
-            return lstm_stack.lstm_stack_bwd(gates, wx, wh, mask, cs, c0,
-                                             dys, dhT, dcT)
-        for name, fn in (("fwd", fwd), ("bwd", bwd)):
-            out[name] = {"eager_ms": cuda_ms(fn, KERNEL_REPS),
-                         "graph_ms": graph_ms(fn, KERNEL_REPS),
-                         "host_ms": host_ms(fn)}
+            def bwd(r=route, g=gates, c=cs):
+                return lstm_stack.lstm_stack_bwd(g, wx, wh, mask, c, c0, dys,
+                                                 dhT, dcT, route=r)
+            rec = {}
+            for name, fn, launches in (("fwd", fwd, LAYERS * t_),
+                                       ("bwd", bwd, LAYERS * (t_ + 1))):
+                eager, graph = cuda_ms(fn, KERNEL_REPS), graph_ms(fn,
+                                                                  KERNEL_REPS)
+                rec[name] = {"eager_ms": eager, "graph_ms": graph,
+                             "host_ms": host_ms(fn)}
+                if route == "step":
+                    rec[name]["step_launches"] = launches
+                    rec[name]["launch_share_us_per_launch"] = \
+                        (eager - graph) * 1e3 / launches
+            out[route] = rec
+        # one recurrence alone: layer 0 through kernels 1-2's persistent
+        # route at the same shape, what the wavefront costs at best
+        _, cs0, _, _, g0 = lstm_layer.lstm_layer_fwd(
+            zx, wh[0], b[0], mask, h0[0], c0[0], save_gates=True)
+        out["one_layer_persistent"] = {
+            "fwd_ms": cuda_ms(lambda: lstm_layer.lstm_layer_fwd(
+                zx, wh[0], b[0], mask, h0[0], c0[0], save_gates=True),
+                KERNEL_REPS),
+            "bwd_ms": cuda_ms(lambda: lstm_layer.lstm_layer_bwd(
+                g0, wh[0], mask, cs0, c0[0], dys, dhT[0], dcT[0]),
+                KERNEL_REPS)}
     out["cudnn"] = {
         "fwd": cudnn_lstm_ms(wh, b, t_, rows, E, LAYERS, dtype),
         "bwd": cudnn_lstm_ms(wh, b, t_, rows, E, LAYERS, dtype,
@@ -1280,6 +1386,10 @@ def flash_phase(dev) -> dict:
 # the CUDA kernel's name in it)
 TENSOR_CORE = {"lstm_layer_fwd": ("lstm_fwd", "lstm_fwd_persist_kernel"),
                "lstm_layer_bwd": ("lstm_bwd", "lstm_bwd_persist_kernel"),
+               "lstm_stack_fwd": ("lstm_fwd",
+                                  "lstm_fwd_stack_persist_kernel"),
+               "lstm_stack_bwd": ("lstm_bwd",
+                                  "lstm_bwd_stack_persist_kernel"),
                "head_ce_bwd": ("head_ce", "head_ce_bwd_tc"),
                "prefix_attn_fwd": ("prefix_attn", "fwd_tc_kernel"),
                "prefix_attn_bwd_dq": ("prefix_attn", "dq_tc_kernel"),
@@ -1399,16 +1509,18 @@ def main() -> int:
     serve_a = serving_phase("serving_A", bench, corpus, dev, "lstm_layer_fwd",
                             persistent=("lstm_layer_fwd",))
     serve_b = serving_phase("serving_B", shipped, corpus, dev,
-                            "lstm_stack_fwd")
+                            "lstm_stack_fwd", persistent=("lstm_stack_fwd",))
     # the support and query passes run each layer's kernel pair once a step
     train_a = training_phase(
         "training_A", dataclasses.replace(bench, steps_per_call=10), corpus,
         dev, layer_pair, per_step=layer_step, persistent=layer_pair)
     train_a8 = int8_phase(dataclasses.replace(bench, steps_per_call=10),
                           corpus, dev, layer_pair, layer_step)
+    stack_pair = ("lstm_stack_fwd", "lstm_stack_bwd")
     train_b = training_phase(
         "training_B", dataclasses.replace(shipped, steps_per_call=10),
-        corpus, dev, ("lstm_stack_fwd", "lstm_stack_bwd"))
+        corpus, dev, stack_pair, per_step=dict.fromkeys(stack_pair, 2),
+        persistent=stack_pair)
 
     # the V=5000 path, after the bench-corpus phases: its 100,000-song
     # corpus build and the head+CE phase do not precede their host timings
@@ -1535,6 +1647,26 @@ def main() -> int:
             rec.update({k: v for k, v in lead.items()
                         if k.endswith("deterministic") or k.startswith(
                             "state_same")})
+        if key.startswith("stack") and r["route"] == "persistent":
+            q = records[(key + "_query", torch.bfloat16)]
+            rec.update({
+                "bf16_kernel": r["route"], "fp32_kernel": f["route"],
+                "route_launches": phase["route_launches"][name],
+                "v1_step_kernels": {k: r["v1"][k] for k in (
+                    "ms", "max_abs_err", "plain_ms")},
+                "tiles_per_launch": r["tiles_per_launch"],
+                "launches_per_call": r["launches_per_call"],
+                "library_busy_ms": r["library_busy_ms"],
+                "query_pass": {
+                    **{k: q[k] for k in (
+                        "shape", "max_abs_err", "ms", "plain_ms",
+                        "bound_ms", "bound_by", "library_ms",
+                        "library_busy_ms", "tiles_per_launch",
+                        "launches_per_call")},
+                    "v1_step_kernels_ms": q["v1"]["ms"]}})
+            rec.update({k: v and q[k] for k, v in r.items()
+                        if k.endswith("deterministic")})
+            rec["oversize_launch_refused"] = q["oversize_launch_refused"]
         if serve is not None:
             rec["launches_serving"] = serve["launches"][name]
             rec["launches_per_serving_batch"] = \

@@ -39,12 +39,17 @@ SIGNATURES = {
         "lstm_persist_ok": [_I] * 3,
         "lstm_fwd_persist_clusters": [_I],
         "lstm_fwd_stack": [_P] * 10 + [_I] * 5 + [_P],
+        "lstm_stack_persist_ok": [_I] * 4,
+        "lstm_fwd_stack_persist_tiles": [_I] * 2,
+        "lstm_fwd_stack_persist": [_P] * 15 + [_I] * 7 + [_P],
     },
     "lstm_bwd": {
         "lstm_bwd_layer": [_P] * 10 + [_I] * 5 + [_P],
         "lstm_bwd_persist": [_P] * 13 + [_I] * 5 + [_P],
         "lstm_bwd_persist_clusters": [_I],
         "lstm_bwd_stack": [_P] * 11 + [_I] * 5 + [_P],
+        "lstm_bwd_stack_persist_tiles": [_I] * 2,
+        "lstm_bwd_stack_persist": [_P] * 16 + [_I] * 7 + [_P],
     },
     "head_ce": {
         "head_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],

@@ -5,8 +5,10 @@
 //   * fewshot/ops/lstm_pallas.py `_bwd_kernel`  -> lstm_bwd_persist (bf16,
 //     H = 128..512 in steps of 128: one launch a call) and lstm_bwd_layer
 //     (fp32, and bf16 past that width: one launch per time step)
-//   * fewshot/ops/lstm_fused.py  `_bwd_kernel`  -> lstm_bwd_stack (all layers
-//     of one time step, top layer first)
+//   * fewshot/ops/lstm_fused.py  `_bwd_kernel`  -> lstm_bwd_stack_persist
+//     (bf16, the forward's route: a layer wavefront, top layer ahead) and
+//     lstm_bwd_stack (fp32 and every other stack: all layers of one time
+//     step, top layer first, one launch each)
 //
 // Time runs in reverse.  With the forward's saved gate activations g_t =
 // (sigmoid i, tanh j, sigmoid(f + 1), sigmoid o) and cell streams, step t
@@ -50,6 +52,15 @@
 // j = 0..NB-1 and adds (1 - mf) dh: no float atomics, the same bits on
 // every launch.  The exchange (64 KB of fp32 partials written and read by
 // every SM a step at H=512) and the barrier bound it.
+//
+// The persistent stack (lstm_bwd_stack_persist_kernel) is the forward's
+// wavefront run backwards: recurrence stage l (Wh_l resident) is the body
+// above, the top layer's fed by dys; projection stage l >= 1 (Wx_l[:, C_j]
+// resident) forms bf16(dz_l[t][rows, C_j]) . Wx_l[:, C_j]^T from the bf16
+// dzx stream, reduce-scatters it in its own cluster, and the owner of
+// units U_k sums the NB slices in block order into a ring that recurrence
+// stage l-1 reads as its dh from above (4 KB a block a step, where reading
+// the NB partials itself would double that stage's exchange).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -476,11 +487,13 @@ int run(const void* gates, const void* wx_rest, const void* wh,
 }
 
 // ---------------------------------------------------------------------------
-// The persistent bf16 kernel
+// The persistent bf16 kernels
 // ---------------------------------------------------------------------------
 
 namespace pc = lstm_cluster;
 using bf16 = __nv_bfloat16;
+
+constexpr size_t kSlice = (size_t)pc::kRows * pc::kUnits;  // [32][32] fp32
 
 // Shared memory of a block at H = 32 NB: the resident slice, its bf16 dz
 // tile (the product's A operand, columns in the slice's order) and the
@@ -518,6 +531,9 @@ __device__ __forceinline__ float gate4_at(uint32_t v, int e, bool sig) {
   return gate_in(static_cast<int8_t>(static_cast<uint8_t>(v >> (8 * e))),
                  sig);
 }
+__device__ __forceinline__ float component(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
 
 // One step's inputs of a thread's four (row, unit) pairs.
 template <typename G>
@@ -527,14 +543,16 @@ struct StepIn {
   float m;
 };
 
-// Load step t's inputs for row `row`, units u..u+3; zeros past the rows.
-template <typename G>
+// Load step t's inputs for row `row`, units u..u+3 (dys: where kDys);
+// zeros where the row is padding.
+template <bool kDys, typename G>
 __device__ __forceinline__ void load_step(StepIn<G>& in, const G* gates,
                                           const float* mask, const bf16* cs,
                                           const bf16* dys, int t, int row,
-                                          int rows, int hidden, int u) {
+                                          bool valid, int rows, int hidden,
+                                          int u) {
   using V = typename Gate4<G>::V;
-  if (row >= rows) {
+  if (!valid) {
     for (int g = 0; g < 4; ++g) in.g[g] = V{};
     in.cs = in.cs_prev = in.dys = make_uint2(0, 0);
     in.m = 0.f;
@@ -549,103 +567,203 @@ __device__ __forceinline__ void load_step(StepIn<G>& in, const G* gates,
   in.cs_prev = t > 0 ? *reinterpret_cast<const uint2*>(
                            cs + (rs - rows) * hidden + u)
                      : make_uint2(0, 0);
-  in.dys = *reinterpret_cast<const uint2*>(dys + rs * hidden + u);
+  if constexpr (kDys)
+    in.dys = *reinterpret_cast<const uint2*>(dys + rs * hidden + u);
   in.m = mask[rs];
 }
 
-// gates [T, B, 4H] in G; wh [H, 4H], cs/dys [T, B, H] bf16; mask [T, B];
-// c0/dhT/dcT/dh0/dc0 [B, H] fp32; dzx [T, B, 4H] bf16 (out); db
-// [row tiles, 4H] fp32 (out, one partial per row tile); xbuf, the
-// exchange: [2 (step parity)][row tiles][NB owners][NB senders][rows][32]
-// fp32, 2 x tiles x H^2 floats.  Grid (NB, row tiles) in clusters of
-// (NB, 1).
-//
+// The partial bf16(dz[rows, C_j]) . W[:, C_j]^T of the block's 128 columns
+// over all H units: dtile holds bf16(dz) [32][kWsPitch] with the columns in
+// the slice's order, ws the resident slice, read as B = W^T[k = column,
+// n = unit] (ldmatrix).  Warp w owns units [w H / 8, (w + 1) H / 8) (its
+// H / 64 n-fragments) for both 16-row m tiles and the whole 128-deep
+// contraction, on mma.sync.
+template <int H>
+__device__ __forceinline__ void partial_product(const bf16* dtile,
+                                                const bf16* ws,
+                                                float (&acc)[2][H / 64][4]) {
+  constexpr int NF = H / 64;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n0 = warp * (H / 8);
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int f = 0; f < NF; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][f][e] = 0.f;
+#pragma unroll 2
+  for (int k0 = 0; k0 < pc::kCols; k0 += 16) {
+    uint32_t af[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      mma::ldsm_x4(af[m], dtile + (16 * m + mma::a_row(lane)) * pc::kWsPitch +
+                              k0 + mma::a_col(lane));
+#pragma unroll
+    for (int pr = 0; pr < NF / 2; ++pr) {
+      uint32_t bfr[4];
+      mma::ldsm_x4(bfr, ws + (size_t)(n0 + 16 * pr + mma::bn_row(lane)) *
+                                 pc::kWsPitch +
+                             k0 + mma::bn_col(lane));
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        mma::mma_bf16(acc[m][2 * pr], af[m], bfr[0], bfr[1]);
+        mma::mma_bf16(acc[m][2 * pr + 1], af[m], bfr[2], bfr[3]);
+      }
+    }
+  }
+}
+
+// The reduce-scatter's sends: the [rows, U_k] slice of the partial to
+// owner k, at dst + k NB kSlice (dst: this sender's slot of owner 0's
+// region of an exchange half [NB owners][NB senders][32][32] fp32), in
+// 16-byte pieces (4 units of one row); lane pairs swap halves so each holds
+// four consecutive columns.
+template <int H>
+__device__ __forceinline__ void scatter_partials(
+    const float (&acc)[2][H / 64][4], float* dst) {
+  constexpr int NB = H / pc::kUnits, NF = H / 64;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int n0 = warp * (H / 8);
+  const int gl = lane / 4, tl = lane % 4;
+  const bool odd = tl & 1;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int f = 0; f < NF; ++f) {
+      const float* v = acc[m][f];
+      const float sx = odd ? v[0] : v[2], sy = odd ? v[1] : v[3];
+      const float ox = __shfl_xor_sync(0xffffffffu, sx, 1);
+      const float oy = __shfl_xor_sync(0xffffffffu, sy, 1);
+      const uint4 piece =
+          odd ? make_uint4(__float_as_uint(ox), __float_as_uint(oy),
+                           __float_as_uint(v[2]), __float_as_uint(v[3]))
+              : make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                           __float_as_uint(ox), __float_as_uint(oy));
+      const int pr_row = 16 * m + gl + (odd ? 8 : 0);
+      const int n = n0 + 8 * f + 2 * (tl & ~1);
+      __stcg(reinterpret_cast<uint4*>(dst + (size_t)(n / pc::kUnits) * NB *
+                                                kSlice +
+                                      pr_row * pc::kUnits + n % pc::kUnits),
+             piece);
+    }
+}
+
+// The owner's sum of the NB slices sent to it, in sender order j = 0..NB-1
+// (no atomics: the same bits on every launch): src points at sender 0's
+// slice, this thread's row and first unit.
+template <int NB>
+__device__ __forceinline__ float4 gather_partials(const float* src) {
+  float4 p[NB];
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    p[j] = __ldcg(reinterpret_cast<const float4*>(src + j * kSlice));
+  float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+    s.x += p[j].x, s.y += p[j].y, s.z += p[j].z, s.w += p[j].w;
+  return s;
+}
+
+// One BPTT recurrence: the 32-row tile [row0, row0 + 32) of one layer (rows
+// from row_hi on are padding) for all T steps in reverse, on one cluster of
+// NB blocks.  gates [T, B, 4H] in G, cs [T, B, H] bf16, c0/dhT/dcT/dh0/dc0
+// [B, H] fp32, dzx [T, B, 4H] bf16 (out), db [4H] fp32 (out: this tile's
+// partial).  The dh arriving from above is the bf16 stream dys [T, B, H],
+// or (kRing) the fp32 ring [kRingDepth][NB][256] float4 a projection stage
+// fills, once its flags (ring_ready) say the step is there.  done: this
+// stage's flags, published after each reverse step (dzx of the step
+// written, the ring slot read), or null.
+template <typename G>
+struct BwdRec {
+  const G* gates;
+  const bf16* wh;
+  const float* mask;
+  const bf16* cs;
+  const float* c0;
+  const bf16* dys;
+  const float4* ring;
+  const unsigned* ring_ready;
+  unsigned* done;
+  const float* dhT;
+  const float* dcT;
+  float* dh0;
+  float* dc0;
+  bf16* dzx;
+  float* db;
+  float* xtile;    // the dh partials' exchange: 2 halves, `half` apart
+  size_t half;
+  int steps, rows, row0, row_hi;
+};
+
 // The reduce-scatter goes through L2: each sender writes its [rows, U_k]
-// slices into the owners' regions of the step's half of xbuf, a cluster
-// barrier (release / acquire) orders them, and each owner reads its NB
-// slices back (ld.global.cg); pushed into the peers' shared memory with
+// slices into the owners' regions of the step's half of the exchange, a
+// cluster barrier (release / acquire) orders them, and each owner reads its
+// NB slices back (ld.global.cg); pushed into the peers' shared memory with
 // st.shared::cluster instead, the same bytes took longer than the rest of
 // the step.  The halves alternate by step, so one barrier a step suffices:
 // a half is written again only after every block passed the barrier that
 // follows its reads.
 //
 // Cell phase: thread tid owns row tid / 8 of the tile and units 4 (tid % 8)
-// .. + 3 of the block.  Product phase: warp w owns hidden units
-// [w H / 8, (w + 1) H / 8) of the partial (its n), both 16-row m tiles and
-// the whole 128-deep contraction.
-template <int NB, typename G>
-__global__ void __launch_bounds__(pc::kThreads, 1)
-    lstm_bwd_persist_kernel(const G* __restrict__ gates,
-                            const bf16* __restrict__ wh,
-                            const float* __restrict__ mask,
-                            const bf16* __restrict__ cs,
-                            const float* __restrict__ c0,
-                            const bf16* __restrict__ dys,
-                            const float* __restrict__ dhT,
-                            const float* __restrict__ dcT,
-                            float* __restrict__ dh0, float* __restrict__ dc0,
-                            bf16* __restrict__ dzx, float* __restrict__ db,
-                            float* __restrict__ xbuf, int steps, int rows) {
+// .. + 3 of the block.  Product phase: partial_product.
+template <int NB, typename G, bool kRing>
+__device__ __forceinline__ void bwd_recurrence(const BwdRec<G>& a,
+                                               unsigned char* smem) {
   using Sm = BwdSmem<NB>;
   constexpr int H = Sm::kHidden;
-  constexpr int NF = H / 64;                 // n fragments of a warp
-  constexpr size_t kSlice = (size_t)pc::kRows * pc::kUnits;
-  extern __shared__ __align__(16) unsigned char smem[];
   bf16* ws = reinterpret_cast<bf16*>(smem);
   bf16* dtile = reinterpret_cast<bf16*>(smem + Sm::kWs);
   float* part = reinterpret_cast<float*>(smem + Sm::kWs + Sm::kD);
-  // this tile's exchange region in each half of xbuf
-  const size_t half = (size_t)gridDim.y * NB * NB * kSlice;
-  float* xtile = xbuf + (size_t)blockIdx.y * NB * NB * kSlice;
+  const int steps = a.steps, rows = a.rows;
   const unsigned me = pc::rank();
   const int u0 = me * pc::kUnits;
-  const int row0 = blockIdx.y * pc::kRows;
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int tid = threadIdx.x;
   const int r = tid / 8, i0 = 4 * (tid % 8);  // cell phase: row, first unit
-  const int row = row0 + r;
-  const bool valid = row < rows;
+  const int row = a.row0 + r;
+  const bool valid = row < a.row_hi;
   const size_t sidx = (size_t)row * H + u0 + i0;
 
-  pc::stage_slice(wh, H, u0, ws);
+  pc::stage_slice(a.wh, H, u0, ws);
   float dh_c[4], dc[4], keep[4] = {}, c0v[4], dbs[4][4] = {};
   {
     const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 a = valid ? *reinterpret_cast<const float4*>(dhT + sidx) : z;
-    const float4 b = valid ? *reinterpret_cast<const float4*>(dcT + sidx) : z;
-    const float4 c = valid ? *reinterpret_cast<const float4*>(c0 + sidx) : z;
-    dh_c[0] = a.x, dh_c[1] = a.y, dh_c[2] = a.z, dh_c[3] = a.w;
-    dc[0] = b.x, dc[1] = b.y, dc[2] = b.z, dc[3] = b.w;
+    const float4 p = valid ? *reinterpret_cast<const float4*>(a.dhT + sidx) : z;
+    const float4 q = valid ? *reinterpret_cast<const float4*>(a.dcT + sidx) : z;
+    const float4 c = valid ? *reinterpret_cast<const float4*>(a.c0 + sidx) : z;
+    dh_c[0] = p.x, dh_c[1] = p.y, dh_c[2] = p.z, dh_c[3] = p.w;
+    dc[0] = q.x, dc[1] = q.y, dc[2] = q.z, dc[3] = q.w;
     c0v[0] = c.x, c0v[1] = c.y, c0v[2] = c.z, c0v[3] = c.w;
   }
   StepIn<G> cur{}, nxt{};
-  if (steps > 0)
-    load_step(cur, gates, mask, cs, dys, steps - 1, row, rows, H, u0 + i0);
+  float4 ext_cur = make_float4(0.f, 0.f, 0.f, 0.f), ext_nxt = ext_cur;
+  // step t's inputs; from the ring, reverse step steps - 1 - t
+  auto load = [&](StepIn<G>& in, float4& ext, int t) {
+    load_step<!kRing>(in, a.gates, a.mask, a.cs, a.dys, t, row, valid, rows,
+                      H, u0 + i0);
+    if constexpr (kRing) {
+      const int s = steps - 1 - t;
+      pc::wait_for<NB>(a.ring_ready, s + 1);
+      ext = __ldcg(a.ring + ((size_t)(s % pc::kRingDepth) * NB + me) *
+                                pc::kThreads + tid);
+    }
+  };
+  if (steps > 0) load(cur, ext_cur, steps - 1);
   mma::cp_async_wait<0>();
   __syncthreads();
 
-  // dh_c = the partials of step t + 1 (xbuf half (t + 1) % 2), in block
+  // dh_c = the partials of step t + 1 (exchange half (t + 1) % 2), in block
   // order, + (1 - mf) dh
   auto gather = [&](int t) {
-    const float* src = xtile + ((t + 1) & 1) * half +
-                       (size_t)me * NB * kSlice + (size_t)r * pc::kUnits + i0;
-    float4 p[NB];
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-      p[j] = __ldcg(reinterpret_cast<const float4*>(src + j * kSlice));
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dh_c[e] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-      dh_c[0] += p[j].x, dh_c[1] += p[j].y, dh_c[2] += p[j].z,
-          dh_c[3] += p[j].w;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dh_c[e] += keep[e];
+    const float4 p = gather_partials<NB>(
+        a.xtile + ((t + 1) & 1) * a.half + (size_t)me * NB * kSlice +
+        (size_t)r * pc::kUnits + i0);
+    dh_c[0] = p.x + keep[0], dh_c[1] = p.y + keep[1];
+    dh_c[2] = p.z + keep[2], dh_c[3] = p.w + keep[3];
   };
 
   for (int t = steps - 1; t >= 0; --t) {
     if (t < steps - 1) gather(t);
-    if (t > 0) load_step(nxt, gates, mask, cs, dys, t - 1, row, rows, H,
-                         u0 + i0);
+    if (t > 0) load(nxt, ext_nxt, t - 1);
     // the cell's backward for this thread's four pairs
     const float mf = cur.m > 0.0f ? 1.0f : 0.0f;
     float d[4][4];
@@ -657,7 +775,8 @@ __global__ void __launch_bounds__(pc::kThreads, 1)
       const float so = gate4_at(cur.g[3], e, true);
       const float tc = tanhf(bf16_at(cur.cs, e));
       const float c_prev = t > 0 ? bf16_at(cur.cs_prev, e) : c0v[e];
-      const float dh = bf16_at(cur.dys, e) + dh_c[e];
+      const float ext = kRing ? component(ext_cur, e) : bf16_at(cur.dys, e);
+      const float dh = ext + dh_c[e];
       const float d_new_h = mf * dh;
       const float d_new_c = d_new_h * so * (1.0f - tc * tc) + mf * dc[e];
       d[0][e] = d_new_c * tj * si * (1.0f - si);
@@ -675,70 +794,26 @@ __global__ void __launch_bounds__(pc::kThreads, 1)
                                 pc::slice_col(g, i0)) = packed;
       if (valid)
         *reinterpret_cast<uint2*>(
-            dzx + ((size_t)t * rows + row) * 4 * H + (size_t)g * H + u0 +
+            a.dzx + ((size_t)t * rows + row) * 4 * H + (size_t)g * H + u0 +
             i0) = packed;
 #pragma unroll
       for (int e = 0; e < 4; ++e) dbs[g][e] += d[g][e];
     }
     __syncthreads();
-    // the partial bf16(dz[rows, C_j]) . Wh[:, C_j]^T over this warp's n
-    float acc[2][NF][4] = {};
-    const int n0 = warp * (H / 8);
-#pragma unroll 2
-    for (int k0 = 0; k0 < pc::kCols; k0 += 16) {
-      uint32_t af[2][4];
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-        mma::ldsm_x4(af[m], dtile + (16 * m + mma::a_row(lane)) *
-                                        pc::kWsPitch +
-                                    k0 + mma::a_col(lane));
-#pragma unroll
-      for (int pr = 0; pr < NF / 2; ++pr) {
-        uint32_t bfr[4];
-        mma::ldsm_x4(bfr, ws + (size_t)(n0 + 16 * pr + mma::bn_row(lane)) *
-                                   pc::kWsPitch +
-                               k0 + mma::bn_col(lane));
-#pragma unroll
-        for (int m = 0; m < 2; ++m) {
-          mma::mma_bf16(acc[m][2 * pr], af[m], bfr[0], bfr[1]);
-          mma::mma_bf16(acc[m][2 * pr + 1], af[m], bfr[2], bfr[3]);
-        }
-      }
-    }
-    // reduce-scatter: 16-byte pieces (4 units of one row) to their owners'
-    // slices; lane pairs swap halves so each holds four consecutive columns
-    float* dst = xtile + (t & 1) * half + (size_t)me * kSlice;
-    const int gl = lane / 4, tl = lane % 4;
-    const bool odd = tl & 1;
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int f = 0; f < NF; ++f) {
-        const float* v = acc[m][f];
-        const float sx = odd ? v[0] : v[2], sy = odd ? v[1] : v[3];
-        const float ox = __shfl_xor_sync(0xffffffffu, sx, 1);
-        const float oy = __shfl_xor_sync(0xffffffffu, sy, 1);
-        const uint4 piece =
-            odd ? make_uint4(__float_as_uint(ox), __float_as_uint(oy),
-                             __float_as_uint(v[2]), __float_as_uint(v[3]))
-                : make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
-                             __float_as_uint(ox), __float_as_uint(oy));
-        const int pr_row = 16 * m + gl + (odd ? 8 : 0);
-        const int n = n0 + 8 * f + 2 * (tl & ~1);
-        __stcg(reinterpret_cast<uint4*>(dst + (size_t)(n / pc::kUnits) * NB *
-                                                  kSlice +
-                                        pr_row * pc::kUnits +
-                                        n % pc::kUnits),
-               piece);
-      }
+    // the partial bf16(dz[rows, C_j]) . Wh[:, C_j]^T, reduce-scattered
+    float acc[2][H / 64][4];
+    partial_product<H>(dtile, ws, acc);
+    scatter_partials<H>(acc, a.xtile + (t & 1) * a.half + (size_t)me * kSlice);
     pc::sync();  // the partials of step t are written and visible
+    if (a.done != nullptr && tid == 0) pc::publish(a.done, steps - t);
     cur = nxt;
+    ext_cur = ext_nxt;
   }
   if (steps > 0) gather(-1);
   if (valid) {
-    *reinterpret_cast<float4*>(dh0 + sidx) =
+    *reinterpret_cast<float4*>(a.dh0 + sidx) =
         make_float4(dh_c[0], dh_c[1], dh_c[2], dh_c[3]);
-    *reinterpret_cast<float4*>(dc0 + sidx) =
+    *reinterpret_cast<float4*>(a.dc0 + sidx) =
         make_float4(dc[0], dc[1], dc[2], dc[3]);
   }
   // db of the tile: each column's 32 rows summed in row order
@@ -751,8 +826,171 @@ __global__ void __launch_bounds__(pc::kThreads, 1)
     float s = 0.f;
     for (int rr = 0; rr < pc::kRows; ++rr) s += part[rr * pc::kCols + tid];
     const int g = tid / pc::kUnits, i = tid % pc::kUnits;
-    db[(size_t)blockIdx.y * 4 * H + (size_t)g * H + u0 + i] = s;
+    a.db[(size_t)g * H + u0 + i] = s;
   }
+}
+
+// gates [T, B, 4H] in G; wh [H, 4H], cs/dys [T, B, H] bf16; mask [T, B];
+// c0/dhT/dcT/dh0/dc0 [B, H] fp32; dzx [T, B, 4H] bf16 (out); db
+// [row tiles, 4H] fp32 (out, one partial per row tile); xbuf, the
+// exchange: [2 (step parity)][row tiles][NB owners][NB senders][rows][32]
+// fp32, 2 x tiles x H^2 floats.  Grid (NB, row tiles) in clusters of
+// (NB, 1): one recurrence per row tile.
+template <int NB, typename G>
+__global__ void __launch_bounds__(pc::kThreads, 1)
+    lstm_bwd_persist_kernel(const G* __restrict__ gates,
+                            const bf16* __restrict__ wh,
+                            const float* __restrict__ mask,
+                            const bf16* __restrict__ cs,
+                            const float* __restrict__ c0,
+                            const bf16* __restrict__ dys,
+                            const float* __restrict__ dhT,
+                            const float* __restrict__ dcT,
+                            float* __restrict__ dh0, float* __restrict__ dc0,
+                            bf16* __restrict__ dzx, float* __restrict__ db,
+                            float* __restrict__ xbuf, int steps, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int H = NB * pc::kUnits;
+  const size_t region = (size_t)NB * NB * kSlice;   // one tile's, one half
+  BwdRec<G> a{gates, wh, mask, cs, c0, dys, nullptr, nullptr, nullptr, dhT,
+              dcT, dh0, dc0, dzx, db + (size_t)blockIdx.y * 4 * H,
+              xbuf + blockIdx.y * region, gridDim.y * region, steps, rows,
+              (int)blockIdx.y * pc::kRows, rows};
+  bwd_recurrence<NB, G, false>(a, smem);
+}
+
+// One projection stage of the stack's backward: layer l >= 1's dz reaches
+// layer l-1 as its dh input bf16(dz_l[t]) . Wx_l^T.  Block j holds
+// Wx_l[:, C_j] and forms the partial of its 128 columns from the bf16 dzx
+// stream that recurrence stage l has just written (the rounding of
+// lstm_fused.py:247 and :257-258); the partials are reduce-scattered in the
+// cluster as the recurrence's are, and owner k sums its NB slices in sender
+// order and writes ext[rows, U_k] into the ring that recurrence stage l-1
+// reads.  Reverse step s (time T - 1 - s) waits for dzx_l (in_ready: the
+// flags of recurrence stage l) and for its ring slot (slot_free:
+// recurrence stage l-1 has finished reverse step s - kRingDepth).
+struct BwdProj {
+  const bf16* dzx;             // [T, B, 4H], layer l
+  const bf16* wx;              // [H, 4H]
+  float4* ring;
+  const unsigned* in_ready;
+  const unsigned* slot_free;
+  unsigned* done;
+  float* xtile;                // the partials' exchange, 2 halves
+  size_t half;
+  int steps, rows, row0, row_hi;
+};
+
+template <int NB>
+__device__ __forceinline__ void bwd_projection(const BwdProj& a,
+                                               unsigned char* smem) {
+  using Sm = BwdSmem<NB>;
+  constexpr int H = Sm::kHidden;
+  bf16* ws = reinterpret_cast<bf16*>(smem);
+  bf16* dtile = reinterpret_cast<bf16*>(smem + Sm::kWs);
+  const unsigned me = pc::rank();
+  const int u0 = me * pc::kUnits;
+  const int tid = threadIdx.x;
+  const int r = tid / 8, i0 = 4 * (tid % 8);
+  pc::stage_slice(a.wx, H, u0, ws);
+  for (int s = 0; s < a.steps; ++s) {
+    const int t = a.steps - 1 - s;
+    if (tid < NB) {
+      pc::spin_until(a.in_ready + tid, s + 1);
+      if (s >= pc::kRingDepth)
+        pc::spin_until(a.slot_free + tid, s - pc::kRingDepth + 1);
+    }
+    __syncthreads();
+    // bf16(dz_l[t])[rows, C_j] into the dz tile, columns in slice order
+    for (int e = tid; e < pc::kRows * 16; e += pc::kThreads) {
+      const int rr = e / 16, g = (e % 16) / 4, oct = e % 4;
+      const bool ok = a.row0 + rr < a.row_hi;
+      mma::cp_async16(
+          dtile + rr * pc::kWsPitch + pc::slice_col(g, 8 * oct),
+          a.dzx + (ok ? ((size_t)t * a.rows + a.row0 + rr) * 4 * H +
+                            (size_t)g * H + u0 + 8 * oct
+                      : 0),
+          ok ? 16 : 0);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    float acc[2][H / 64][4];
+    partial_product<H>(dtile, ws, acc);
+    float* half = a.xtile + (s & 1) * a.half;
+    scatter_partials<H>(acc, half + (size_t)me * kSlice);
+    pc::sync();  // the partials of step s are written and visible
+    const float4 v = gather_partials<NB>(half + (size_t)me * NB * kSlice +
+                                         (size_t)r * pc::kUnits + i0);
+    __stcg(a.ring + ((size_t)(s % pc::kRingDepth) * NB + me) * pc::kThreads +
+               tid,
+           v);
+    __syncthreads();  // the slot written
+    if (tid == 0) pc::publish(a.done, s + 1);
+  }
+}
+
+// The stack's BPTT as a layer wavefront of 2L - 1 stages per 32-row tile,
+// each a cluster of NB blocks, all resident at once (a cooperative launch):
+// cluster s of a tile runs recurrence stage l = L - 1 - s / 2 (s even,
+// bwd_recurrence with Wh_l resident) or projection stage l = L - (s + 1) / 2
+// (s odd, bwd_projection with Wx_l resident).  The top layer runs ahead on
+// dys, each projection stage follows its recurrence through the dzx stream,
+// and the layer below reads its dh input from the ring.
+//
+// gates [L, T, B, 4H], wx [L-1, H, 4H], wh [L, H, 4H], cs [L, T, B, H], dys
+// [T, B, H] bf16; mask [T, B], c0/dhT/dcT/dh0/dc0 [L, B, H] fp32; dzx [L, T,
+// B, 4H] bf16 (out); db [tiles, L, 4H] fp32 (out, each tile's partial).
+// Scratch: xbuf [tiles][2L - 1][2][NB][NB][32][32] fp32, ring
+// [tiles][L-1][kRingDepth][NB][256] float4, step flags [tiles][2L - 1][NB]
+// (zero on entry).  Grid (NB, tiles (2L - 1)), rows as the forward's.
+template <int NB>
+__global__ void __launch_bounds__(pc::kThreads, 1)
+    lstm_bwd_stack_persist_kernel(
+        const bf16* __restrict__ gates, const bf16* __restrict__ wx,
+        const bf16* __restrict__ wh, const float* __restrict__ mask,
+        const bf16* __restrict__ cs, const float* __restrict__ c0,
+        const bf16* __restrict__ dys, const float* __restrict__ dhT,
+        const float* __restrict__ dcT, float* __restrict__ dh0,
+        float* __restrict__ dc0, bf16* __restrict__ dzx,
+        float* __restrict__ db, float* __restrict__ xbuf,
+        float4* __restrict__ ring, unsigned* __restrict__ flags,
+        int steps, int rows, int row_lo, int row_hi, int layers) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int H = NB * pc::kUnits;
+  const int stages = 2 * layers - 1;
+  const int tile = blockIdx.y / stages, s = blockIdx.y % stages;
+  const int row0 = row_lo + tile * pc::kRows;
+  unsigned* cnt = flags + (size_t)tile * stages * NB;  // stage s: + s NB
+  const size_t whh = (size_t)H * 4 * H, bh = (size_t)rows * H;
+  const size_t lt = (size_t)steps * bh;             // a layer's [T, B, H]
+  const size_t region = (size_t)NB * NB * kSlice;
+  float* xtile = xbuf + ((size_t)tile * stages + s) * 2 * region;
+  const size_t ring_len = (size_t)pc::kRingDepth * NB * pc::kThreads;
+  if (s % 2 == 1) {
+    const int l = layers - (s + 1) / 2;
+    BwdProj a{dzx + (size_t)l * 4 * lt, wx + (size_t)(l - 1) * whh,
+              ring + ((size_t)tile * (layers - 1) + l - 1) * ring_len,
+              cnt + (s - 1) * NB, cnt + (s + 1) * NB, cnt + s * NB, xtile,
+              region, steps, rows, row0, row_hi};
+    bwd_projection<NB>(a, smem);
+    return;
+  }
+  const int l = layers - 1 - s / 2;
+  const bool top = l == layers - 1;
+  BwdRec<bf16> a{
+      gates + (size_t)l * 4 * lt, wh + (size_t)l * whh, mask,
+      cs + (size_t)l * lt, c0 + (size_t)l * bh, top ? dys : nullptr,
+      top ? nullptr : ring + ((size_t)tile * (layers - 1) + l) * ring_len,
+      top ? nullptr : cnt + (s - 1) * NB, cnt + s * NB,
+      dhT + (size_t)l * bh,
+      dcT + (size_t)l * bh, dh0 + (size_t)l * bh, dc0 + (size_t)l * bh,
+      dzx + (size_t)l * 4 * lt, db + ((size_t)tile * layers + l) * 4 * H,
+      xtile, region, steps, rows, row0, row_hi};
+  if (top)
+    bwd_recurrence<NB, bf16, false>(a, smem);
+  else
+    bwd_recurrence<NB, bf16, true>(a, smem);
 }
 
 template <int NB, typename G>
@@ -788,6 +1026,57 @@ cudaError_t persist(const void* gates, const void* wh, const float* mask,
     case 16:
       return persist_with<16, G>(gates, wh, mask, cs, c0, dys, dhT, dcT, dh0,
                                  dc0, dzx, db, xbuf, steps, rows, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The stack kernel at H = 32 NB: launch (tiles > 0) or query (tiles = 0:
+// how many tiles one launch holds at `layers`, into *fit).
+template <int NB>
+cudaError_t stack_persist_with(const void* gates, const void* wx,
+                               const void* wh, const float* mask,
+                               const void* cs, const float* c0,
+                               const void* dys, const float* dhT,
+                               const float* dcT, float* dh0, float* dc0,
+                               void* dzx, float* db, float* xbuf, void* ring,
+                               unsigned* flags, int steps, int rows,
+                               int row_lo, int row_hi, int layers, int tiles,
+                               int* fit, cudaStream_t st) {
+  auto kernel = lstm_bwd_stack_persist_kernel<NB>;
+  constexpr size_t smem = BwdSmem<NB>::kBytes;
+  if (tiles == 0) {
+    *fit = pc::max_clusters(kernel, NB, smem) / (2 * layers - 1);
+    return cudaSuccess;
+  }
+  return pc::launch_clusters(
+      kernel, NB, tiles * (2 * layers - 1), true, smem, st,
+      static_cast<const bf16*>(gates), static_cast<const bf16*>(wx),
+      static_cast<const bf16*>(wh), mask, static_cast<const bf16*>(cs), c0,
+      static_cast<const bf16*>(dys), dhT, dcT, dh0, dc0,
+      static_cast<bf16*>(dzx), db, xbuf, static_cast<float4*>(ring),
+      flags, steps, rows, row_lo, row_hi, layers);
+}
+
+cudaError_t stack_persist(const void* gates, const void* wx, const void* wh,
+                          const float* mask, const void* cs, const float* c0,
+                          const void* dys, const float* dhT, const float* dcT,
+                          float* dh0, float* dc0, void* dzx, float* db,
+                          float* xbuf, void* ring, unsigned* flags,
+                          int steps, int rows, int row_lo, int row_hi,
+                          int hidden, int layers, int tiles, int* fit,
+                          cudaStream_t st) {
+  switch (hidden / pc::kUnits) {
+#define LSTM_STACK_CASE(NB)                                                   \
+  case NB:                                                                    \
+    return stack_persist_with<NB>(gates, wx, wh, mask, cs, c0, dys, dhT, dcT, \
+                                  dh0, dc0, dzx, db, xbuf, ring, flags,    \
+                                  steps, rows, row_lo, row_hi, layers, tiles, \
+                                  fit, st);
+    LSTM_STACK_CASE(4)
+    LSTM_STACK_CASE(8)
+    LSTM_STACK_CASE(12)
+    LSTM_STACK_CASE(16)
+#undef LSTM_STACK_CASE
   }
   return cudaErrorInvalidValue;
 }
@@ -874,4 +1163,46 @@ extern "C" int lstm_bwd_stack(const void* gates, const void* wx_rest,
   if (layers < 2) return cudaErrorInvalidValue;
   return run<void>(gates, wx_rest, wh, mask, cs, c0, dys, dh, dc, dzx, db,
                    steps, rows, hidden, layers, dtype, stream);
+}
+
+// How many 32-row tiles one launch of the persistent stack backward holds
+// at (hidden, layers) (cudaOccupancyMaxActiveClusters over its 2L - 1
+// clusters a tile; 0: none fits, -1: not its route).
+extern "C" int lstm_bwd_stack_persist_tiles(int hidden, int layers) {
+  if (!pc::stack_persist_ok(1, hidden, layers, 1)) return -1;
+  int fit = 0;
+  if (stack_persist(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, 0, 0, 0, 0, hidden,
+                    layers, 0, &fit, nullptr) != cudaSuccess)
+    return -1;
+  return fit;
+}
+
+// The persistent stack backward (bf16 only), rows [row_lo, row_hi) of the
+// batch in one cooperative launch of ceil((row_hi - row_lo) / 32) row
+// tiles: gates [L, T, B, 4H], wx_rest [L-1, H, 4H], wh [L, H, 4H], mask
+// [T, B], cs [L, T, B, H], c0 [L, B, H] fp32, dys [T, B, H] (the top
+// layer's cotangent), dhT/dcT [L, B, H] fp32 (read only); dh0/dc0 [L, B, H]
+// fp32, dzx [L, T, B, 4H] and db [tiles, L, 4H] fp32 (each tile's partial,
+// every entry written): out.  Scratch: xbuf (2L - 1) tiles 2 H^2 fp32, ring
+// (L - 1) tiles 4 32 H fp32, step flags (2L - 1) tiles H / 32 uint32, zero
+// on entry (one set per launch).  A launch the card cannot hold at once is
+// refused (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int lstm_bwd_stack_persist(
+    const void* gates, const void* wx_rest, const void* wh,
+    const float* mask, const void* cs, const float* c0, const void* dys,
+    const float* dhT, const float* dcT, float* dh0, float* dc0, void* dzx,
+    float* db, float* xbuf, void* ring, unsigned* flags, int steps,
+    int rows, int row_lo, int row_hi, int hidden, int layers, int dtype,
+    void* stream) {
+  if (!pc::stack_persist_ok(rows, hidden, layers, dtype) || steps < 0 ||
+      row_lo < 0 || row_hi > rows || row_lo >= row_hi)
+    return cudaErrorInvalidValue;
+  const int tiles = (row_hi - row_lo + pc::kRows - 1) / pc::kRows;
+  int fit = 0;
+  return stack_persist(gates, wx_rest, wh, mask, cs, c0, dys, dhT, dcT, dh0,
+                       dc0, dzx, db, xbuf, ring, flags, steps, rows,
+                       row_lo, row_hi, hidden, layers, tiles, &fit,
+                       static_cast<cudaStream_t>(stream));
 }

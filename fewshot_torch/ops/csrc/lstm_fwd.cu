@@ -4,8 +4,11 @@
 //   * fewshot/ops/lstm_pallas.py `_fwd_kernel`  -> lstm_fwd_persist (bf16,
 //     H = 128..512 in steps of 128: one launch a call) and lstm_fwd_layer
 //     (fp32, and bf16 past that width: one launch per time step)
-//   * fewshot/ops/lstm_fused.py  `_fwd_kernel`  -> lstm_fwd_stack (all layers
-//     advance inside one time step; layers >= 1 project their input here)
+//   * fewshot/ops/lstm_fused.py  `_fwd_kernel`  -> lstm_fwd_stack_persist
+//     (bf16, H = 128..512, L >= 2 within kStackMaxBlocks: one cooperative
+//     launch of a layer wavefront) and lstm_fwd_stack (fp32 and every other
+//     stack: one launch per layer and time step; layers >= 1 project their
+//     input here)
 //
 // Per time step and layer they compute
 //   z = zx[t] (layer 0) or x_t . Wx (layers >= 1)  +  h_{t-1} . Wh  +  b
@@ -48,6 +51,19 @@
 // takes the place of the launch boundary (one a step).  Per-step latency
 // bounds it: the barrier, the 32 KB read back into every SM, the products
 // and the gates, one after the other, every step.
+//
+// The persistent stack (lstm_fwd_stack_persist_kernel).  A block cannot
+// hold two [H, 128] weight slices at H = 512, and a cluster has at most 16
+// blocks, so layer l >= 1 cannot run on one cluster: the stack runs as a
+// wavefront of 2L - 1 clusters per row tile.  Recurrence stage l is the
+// persistent body above with Wh_l resident; projection stage l >= 1 holds
+// Wx_l[:, C_j] and turns layer l-1's bf16 ys stream into x . Wx for layer
+// l, through a ring in L2.  The stages hand off through step flags
+// (release / acquire at .gpu scope); the launch is cooperative, so all
+// clusters are resident or the launch is refused.  In steady state a step
+// costs the slowest stage's step, not L of them: the same chain as the
+// per-layer kernel, now with the wait for the ring between the h exchange
+// and the products.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -430,7 +446,7 @@ cudaError_t stack_with(const void* zx, const void* wx_rest, const void* wh,
 }
 
 // ---------------------------------------------------------------------------
-// The persistent bf16 kernel
+// The persistent bf16 kernels
 // ---------------------------------------------------------------------------
 
 namespace pc = lstm_cluster;
@@ -440,7 +456,8 @@ using bf16 = __nv_bfloat16;
 // (bf16, all H units of the tile's rows), the block's own bf16(h_t) before
 // the exchange (also its ys tile), the partial sums the two contraction
 // halves swap, and the step's gates tile in G (written out in 16-byte
-// pieces: a 2-byte store per gate took a visible share of the step).
+// pieces: a 2-byte store per gate took a visible share of the step).  A
+// projection stage uses the first three: the slice, its A tile, red.
 template <int NB, typename G>
 struct FwdSmem {
   static constexpr int kHidden = NB * pc::kUnits;
@@ -455,53 +472,118 @@ struct FwdSmem {
   static_assert(kBytes <= (size_t)kMaxSmem, "forward slice does not fit");
 };
 
-// zx [T, B, 4H], wh [H, 4H], ys/cs [T, B, H] bf16; bias [4H], mask [T, B],
-// h0/c0/hT/cT [B, H] fp32; gates [T, B, 4H] in G, or null; xh, the
-// exchange: [2 (step parity)][row tiles][rows][H] bf16.  Grid (NB, row
-// tiles) in clusters of (NB, 1).
-//
+__device__ __forceinline__ float component(const float4& v, int e) {
+  return e == 0 ? v.x : e == 1 ? v.y : e == 2 ? v.z : v.w;
+}
+
+// The products of the tile's 32 rows (abuf: bf16, pitch H + 8) with the
+// block's resident slice ws, for this thread's 16 accumulator entries:
+// z[g][e] = sum over k < H of a[row, k] ws[k, slice_col(g, unit)] for row
+// 16 kh + gl (e < 2) or 16 kh + gl + 8 (e >= 2) and unit 8q + 2tl + e % 2 of
+// the block, where warp = 4 kh + q and lane = 4 gl + tl.  Warp (q, kh) sums
+// contraction half kh for both 16-row m tiles on mma.sync; the halves swap
+// partial sums through `red` and each warp keeps m tile kh, first half +
+// second half.  Holds a block barrier; red is free after the caller's next.
+template <int H>
+__device__ __forceinline__ void tile_product(const bf16* abuf,
+                                             const bf16* ws, float* red,
+                                             float (&z)[4][4]) {
+  constexpr int P = H + 8;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int q = warp % 4, kh = warp / 4;
+  float acc[2][4][4] = {};
+  const int kbeg = kh * (H / 2);
+#pragma unroll 4
+  for (int k0 = kbeg; k0 < kbeg + H / 2; k0 += 16) {
+    uint32_t af[2][4], bfr[2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+      mma::ldsm_x4(af[m], abuf + (16 * m + mma::a_row(lane)) * P + k0 +
+                              mma::a_col(lane));
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr)
+      mma::ldsm_x4_trans(bfr[pr], ws + (size_t)(k0 + mma::bk_row(lane)) *
+                                           pc::kWsPitch +
+                                       32 * q + 16 * pr + mma::bk_col(lane));
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int g = 0; g < 4; ++g)
+        mma::mma_bf16(acc[m][g], af[m], bfr[g / 2][2 * (g % 2)],
+                      bfr[g / 2][2 * (g % 2) + 1]);
+  }
+  // hand the other m tile's partial to the warp that finishes it (kh
+  // selects by value: indexing acc by it would put acc in local memory)
+  float* mine = red + (size_t)kh * 16 * 128 + q * 32 + lane;
+  float* other = red + (size_t)(1 - kh) * 16 * 128 + q * 32 + lane;
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      other[(g * 4 + e) * 128] = kh == 0 ? acc[1][g][e] : acc[0][g][e];
+  __syncthreads();
+#pragma unroll
+  for (int g = 0; g < 4; ++g)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      z[g][e] = kh == 0 ? acc[0][g][e] + mine[(g * 4 + e) * 128]
+                        : mine[(g * 4 + e) * 128] + acc[1][g][e];
+}
+
+// One recurrence: the 32-row tile [row0, row0 + 32) of one layer (rows from
+// row_hi on are padding) for all T steps on one cluster of NB blocks; block
+// `rank` owns units U_rank.  Streams are [T, B, .] with B = rows; h0, c0,
+// hT, cT [B, H] fp32.  Its input projection comes from the bf16 stream zx
+// [T, B, 4H] or (kRing) from the fp32 ring [kRingDepth][NB][4][256] float4
+// that a projection stage fills, once its flags (`ring_ready`) say the step
+// is there.  done: this stage's flags, published after each step (ys, cs
+// and the gates written, the ring slot read), or null.
+template <typename G>
+struct FwdRec {
+  const bf16* zx;
+  const float4* ring;
+  const unsigned* ring_ready;
+  unsigned* done;
+  const bf16* wh;
+  const float* bias;
+  const float* mask;
+  const float* h0;
+  const float* c0;
+  bf16* ys;
+  bf16* cs;
+  G* gates;                    // [T, B, 4H] or null
+  float* hT;
+  float* cT;
+  bf16* xtile;                 // h's exchange: 2 halves of [32][H]
+  size_t xhalf;
+  int steps, rows, row0, row_hi;
+};
+
 // The all-gather goes through L2: each block writes its bf16(h_t)[rows,
-// U_j] into the step's half of xh, a cluster barrier (release / acquire)
-// orders the writes, and every block copies the whole [rows, H] tile into
-// its h buffer (cp.async.cg) before the next step's products; pushed into
-// the peers' shared memory with st.shared::cluster instead, the same bytes
-// took longer.  The halves alternate by step, so one barrier a step
-// suffices.
+// U_j] into the step's half of the exchange, a cluster barrier (release /
+// acquire) orders the writes, and every block copies the whole [rows, H]
+// tile into its h buffer (cp.async.cg) before the next step's products;
+// pushed into the peers' shared memory with st.shared::cluster instead, the
+// same bytes took longer.  The halves alternate by step, so one barrier a
+// step suffices.
 //
-// Warp w = 4 kh + q owns unit octet q (units 8q..8q+7 of the block, their
-// four gates: slice columns [32 q, 32 q + 32)) and contraction half kh, for
-// both 16-row m tiles.  The two halves swap partial sums through shared
-// memory, then warp (q, kh) finishes m tile kh: lane (gl, tl) = (lane / 4,
-// lane % 4) owns rows 16 kh + gl and 16 kh + gl + 8 and units 8q + 2tl,
-// 8q + 2tl + 1, the accumulator entries of its four n-fragments (one per
-// gate) for those four (row, unit) pairs, and their h and c in registers.
-template <int NB, typename G>
-__global__ void __launch_bounds__(pc::kThreads, 1)
-    lstm_fwd_persist_kernel(const bf16* __restrict__ zx,
-                            const bf16* __restrict__ wh,
-                            const float* __restrict__ bias,
-                            const float* __restrict__ mask,
-                            const float* __restrict__ h0,
-                            const float* __restrict__ c0,
-                            bf16* __restrict__ ys, bf16* __restrict__ cs,
-                            G* __restrict__ gates, float* __restrict__ hT,
-                            float* __restrict__ cT, bf16* __restrict__ xh,
-                            int steps, int rows) {
+// Thread (warp 4 kh + q, lane 4 gl + tl) owns, after tile_product, rows
+// 16 kh + gl and 16 kh + gl + 8 and units 8q + 2tl, 8q + 2tl + 1: their
+// four gates' pre-activations, and their h and c in registers.
+template <int NB, typename G, bool kRing>
+__device__ __forceinline__ void fwd_recurrence(const FwdRec<G>& a,
+                                               unsigned char* smem) {
   using Sm = FwdSmem<NB, G>;
   constexpr int H = Sm::kHidden, P = Sm::kAPitch;
-  extern __shared__ __align__(16) unsigned char smem[];
   bf16* ws = reinterpret_cast<bf16*>(smem);
   bf16* abuf = reinterpret_cast<bf16*>(smem + Sm::kWs);
   bf16* hs = reinterpret_cast<bf16*>(smem + Sm::kWs + Sm::kA);
   float* red = reinterpret_cast<float*>(smem + Sm::kWs + Sm::kA + Sm::kHs);
   G* gtile = reinterpret_cast<G*>(smem + Sm::kWs + Sm::kA + Sm::kHs +
                                   Sm::kRed);     // [rows][gate][unit]
-  // this tile's exchange rows in each half of xh
-  const size_t xhalf = (size_t)gridDim.y * pc::kRows * H;
-  bf16* xtile = xh + (size_t)blockIdx.y * pc::kRows * H;
+  const int steps = a.steps, rows = a.rows, row0 = a.row0, row_hi = a.row_hi;
   const unsigned me = pc::rank();
   const int u0 = me * pc::kUnits;
-  const int row0 = blockIdx.y * pc::kRows;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int q = warp % 4, kh = warp / 4;
   const int gl = lane / 4, tl = lane % 4;
@@ -514,13 +596,13 @@ __global__ void __launch_bounds__(pc::kThreads, 1)
     rglob[hf] = row0 + rloc[hf];
   }
 
-  pc::stage_slice(wh, H, u0, ws);
+  pc::stage_slice(a.wh, H, u0, ws);
   // bf16(h0) of the tile's rows, all H units, into the h buffer
   for (int e = tid; e < pc::kRows * H / 4; e += pc::kThreads) {
     const int r = e / (H / 4), k = 4 * (e % (H / 4));
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < rows)
-      v = *reinterpret_cast<const float4*>(h0 + (size_t)(row0 + r) * H + k);
+    if (row0 + r < row_hi)
+      v = *reinterpret_cast<const float4*>(a.h0 + (size_t)(row0 + r) * H + k);
     *reinterpret_cast<uint2*>(abuf + r * P + k) =
         make_uint2(mma::pack_bf16(v.x, v.y), mma::pack_bf16(v.z, v.w));
   }
@@ -529,40 +611,58 @@ __global__ void __launch_bounds__(pc::kThreads, 1)
 #pragma unroll
   for (int g = 0; g < 4; ++g)
 #pragma unroll
-    for (int ui = 0; ui < 2; ++ui) b[g][ui] = bias[g * H + u0 + ucol + ui];
+    for (int ui = 0; ui < 2; ++ui) b[g][ui] = a.bias[g * H + u0 + ucol + ui];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
     for (int ui = 0; ui < 2; ++ui) {
-      const bool ok = rglob[hf] < rows;
+      const bool ok = rglob[hf] < row_hi;
       const size_t idx = (size_t)rglob[hf] * H + u0 + ucol + ui;
-      h[hf][ui] = ok ? h0[idx] : 0.f;
-      c[hf][ui] = ok ? c0[idx] : 0.f;
+      h[hf][ui] = ok ? a.h0[idx] : 0.f;
+      c[hf][ui] = ok ? a.c0[idx] : 0.f;
     }
   mma::cp_async_wait<0>();
   __syncthreads();
 
   const size_t four_h = 4 * (size_t)H;
-  // zx[t] and mask[t] of this thread's pairs ([hf][gate]: a bf16 pair),
-  // loaded a step ahead
+  // step t's input projection of this thread's entries ([hf][gate]: a bf16
+  // pair from the stream; [gate]: a float4 from the ring) and mask, loaded
+  // a step ahead
   uint32_t zn[2][4];
+  float4 rn[4];
   float mn[2];
-  auto load_zx = [&](int t) {
+  auto load_in = [&](int t) {
+    if constexpr (kRing) {
+      if (t < steps) {
+        pc::wait_for<NB>(a.ring_ready, t + 1);
+        const float4* src =
+            a.ring +
+            ((size_t)(t % pc::kRingDepth) * NB + me) * 4 * pc::kThreads + tid;
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const bool ok = t < steps && rglob[hf] < rows;
-      const bf16* zr =
-          zx + ((size_t)t * rows + rglob[hf]) * four_h + u0 + ucol;
+        for (int g = 0; g < 4; ++g) rn[g] = __ldcg(src + g * pc::kThreads);
+      }
+    } else {
 #pragma unroll
-      for (int g = 0; g < 4; ++g)
-        zn[hf][g] = ok ? *reinterpret_cast<const uint32_t*>(zr + g * H) : 0u;
-      mn[hf] = ok ? mask[(size_t)t * rows + rglob[hf]] : 0.f;
+      for (int hf = 0; hf < 2; ++hf) {
+        const bool ok = t < steps && rglob[hf] < row_hi;
+        const bf16* zr =
+            a.zx + ((size_t)t * rows + rglob[hf]) * four_h + u0 + ucol;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          zn[hf][g] =
+              ok ? *reinterpret_cast<const uint32_t*>(zr + g * H) : 0u;
+      }
     }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+      mn[hf] = t < steps && rglob[hf] < row_hi
+                   ? a.mask[(size_t)t * rows + rglob[hf]]
+                   : 0.f;
   };
-  load_zx(0);
+  load_in(0);
   for (int t = 0; t < steps; ++t) {
     if (t > 0) {  // bf16(h_{t-1}) of the whole tile, from xh's half
-      const bf16* src = xtile + ((t - 1) & 1) * xhalf;
+      const bf16* src = a.xtile + ((t - 1) & 1) * a.xhalf;
       for (int e = tid; e < pc::kRows * H / 8; e += pc::kThreads) {
         const int r = e / (H / 8), k = 8 * (e % (H / 8));
         mma::cp_async16(abuf + r * P + k, src + (size_t)r * H + k);
@@ -572,6 +672,7 @@ __global__ void __launch_bounds__(pc::kThreads, 1)
       __syncthreads();
     }
     uint32_t zv[2][4];
+    float4 rv[4];
     float mv[2];
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
@@ -579,39 +680,11 @@ __global__ void __launch_bounds__(pc::kThreads, 1)
 #pragma unroll
       for (int g = 0; g < 4; ++g) zv[hf][g] = zn[hf][g];
     }
-    load_zx(t + 1);                            // in flight over this step
-    // bf16(h_{t-1}) . Wh over this warp's half of the contraction
-    float acc[2][4][4] = {};
-    const int kbeg = kh * (H / 2);
-#pragma unroll 4
-    for (int k0 = kbeg; k0 < kbeg + H / 2; k0 += 16) {
-      uint32_t af[2][4], bfr[2][4];
 #pragma unroll
-      for (int m = 0; m < 2; ++m)
-        mma::ldsm_x4(af[m], abuf + (16 * m + mma::a_row(lane)) * P + k0 +
-                                mma::a_col(lane));
-#pragma unroll
-      for (int pr = 0; pr < 2; ++pr)
-        mma::ldsm_x4_trans(bfr[pr], ws + (size_t)(k0 + mma::bk_row(lane)) *
-                                             pc::kWsPitch +
-                                         32 * q + 16 * pr + mma::bk_col(lane));
-#pragma unroll
-      for (int m = 0; m < 2; ++m)
-#pragma unroll
-        for (int g = 0; g < 4; ++g)
-          mma::mma_bf16(acc[m][g], af[m], bfr[g / 2][2 * (g % 2)],
-                        bfr[g / 2][2 * (g % 2) + 1]);
-    }
-    // hand the other m tile's partial to the warp that finishes it (kh
-    // selects by value: indexing acc by it would put acc in local memory)
-    float* mine = red + (size_t)kh * 16 * 128 + q * 32 + lane;
-    float* other = red + (size_t)(1 - kh) * 16 * 128 + q * 32 + lane;
-#pragma unroll
-    for (int g = 0; g < 4; ++g)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        other[(g * 4 + e) * 128] = kh == 0 ? acc[1][g][e] : acc[0][g][e];
-    __syncthreads();
+    for (int g = 0; g < 4; ++g) rv[g] = rn[g];
+    load_in(t + 1);                            // in flight over this step
+    float prod[4][4];                          // bf16(h_{t-1}) . Wh
+    tile_product<H>(abuf, ws, red, prod);
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
       float act[4][2];
@@ -621,11 +694,14 @@ __global__ void __launch_bounds__(pc::kThreads, 1)
 #pragma unroll
         for (int g = 0; g < 4; ++g) {
           const int e = 2 * hf + ui;
-          const float prod = kh == 0 ? acc[0][g][e] + mine[(g * 4 + e) * 128]
-                                     : mine[(g * 4 + e) * 128] + acc[1][g][e];
-          const uint32_t zp = zv[hf][g];       // bf16 pair, as bits
-          const float zxv = __uint_as_float(ui ? zp & 0xffff0000u : zp << 16);
-          z[g] = (zxv + prod) + b[g][ui];
+          float zxv;
+          if constexpr (kRing) {
+            zxv = component(rv[g], e);
+          } else {
+            const uint32_t zp = zv[hf][g];     // bf16 pair, as bits
+            zxv = __uint_as_float(ui ? zp & 0xffff0000u : zp << 16);
+          }
+          z[g] = (zxv + prod[g][e]) + b[g][ui];
         }
         act[0][ui] = sigmoid(z[0]);
         act[1][ui] = tanhf(z[1]);
@@ -646,49 +722,207 @@ __global__ void __launch_bounds__(pc::kThreads, 1)
         gp[0] = gate_out<G>(act[g][0], g != 1);
         gp[1] = gate_out<G>(act[g][1], g != 1);
       }
-      if (rglob[hf] < rows)
+      if (rglob[hf] < row_hi)
         *reinterpret_cast<uint32_t*>(
-            cs + ((size_t)t * rows + rglob[hf]) * H + u0 + ucol) =
+            a.cs + ((size_t)t * rows + rglob[hf]) * H + u0 + ucol) =
             mma::pack_bf16(c[hf][0], c[hf][1]);
     }
     __syncthreads();  // hs and the gates tile complete; red read
     // ys (= hs) and the gates of the tile's rows, in 16-byte pieces
     for (int e = tid; e < pc::kRows * 4; e += pc::kThreads) {
       const int r = e / 4, o = e % 4;
-      if (row0 + r < rows)
-        *reinterpret_cast<uint4*>(ys + ((size_t)t * rows + row0 + r) * H +
+      if (row0 + r < row_hi)
+        *reinterpret_cast<uint4*>(a.ys + ((size_t)t * rows + row0 + r) * H +
                                   u0 + 8 * o) =
             *reinterpret_cast<const uint4*>(hs + r * pc::kUnits + 8 * o);
     }
-    if (gates != nullptr) {
+    if (a.gates != nullptr) {
       constexpr int kPer = 16 / sizeof(G);           // gates a piece
       constexpr int kRowPieces = pc::kCols / kPer;
       for (int e = tid; e < pc::kRows * kRowPieces; e += pc::kThreads) {
         const int r = e / kRowPieces, col = (e % kRowPieces) * kPer;
-        if (row0 + r < rows)
+        if (row0 + r < row_hi)
           *reinterpret_cast<uint4*>(
-              gates + ((size_t)t * rows + row0 + r) * four_h +
+              a.gates + ((size_t)t * rows + row0 + r) * four_h +
               (size_t)(col / pc::kUnits) * H + u0 + col % pc::kUnits) =
               *reinterpret_cast<const uint4*>(gtile + r * pc::kCols + col);
       }
     }
-    if (t + 1 == steps) break;
+    if (t + 1 == steps) {
+      if (a.done != nullptr) {
+        __syncthreads();
+        if (tid == 0) pc::publish(a.done, t + 1);
+      }
+      break;
+    }
     // bf16(h_t)[rows, U_j], 128 pieces of 16 bytes, into xh's half
     if (tid < pc::kRows * 4) {
       const int r = tid / 4, o = tid % 4;
-      __stcg(reinterpret_cast<uint4*>(xtile + (t & 1) * xhalf +
+      __stcg(reinterpret_cast<uint4*>(a.xtile + (t & 1) * a.xhalf +
                                       (size_t)r * H + u0 + 8 * o),
              *reinterpret_cast<const uint4*>(hs + r * pc::kUnits + 8 * o));
     }
     pc::sync();  // h_t in L2 for the whole cluster
+    if (a.done != nullptr && tid == 0) pc::publish(a.done, t + 1);
   }
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    if (rglob[hf] >= rows) continue;
+    if (rglob[hf] >= row_hi) continue;
     const size_t idx = (size_t)rglob[hf] * H + u0 + ucol;
-    *reinterpret_cast<float2*>(hT + idx) = make_float2(h[hf][0], h[hf][1]);
-    *reinterpret_cast<float2*>(cT + idx) = make_float2(c[hf][0], c[hf][1]);
+    *reinterpret_cast<float2*>(a.hT + idx) = make_float2(h[hf][0], h[hf][1]);
+    *reinterpret_cast<float2*>(a.cT + idx) = make_float2(c[hf][0], c[hf][1]);
   }
+}
+
+// zx [T, B, 4H], wh [H, 4H], ys/cs [T, B, H] bf16; bias [4H], mask [T, B],
+// h0/c0/hT/cT [B, H] fp32; gates [T, B, 4H] in G, or null; xh, the
+// exchange: [2 (step parity)][row tiles][rows][H] bf16.  Grid (NB, row
+// tiles) in clusters of (NB, 1): one recurrence per row tile.
+template <int NB, typename G>
+__global__ void __launch_bounds__(pc::kThreads, 1)
+    lstm_fwd_persist_kernel(const bf16* __restrict__ zx,
+                            const bf16* __restrict__ wh,
+                            const float* __restrict__ bias,
+                            const float* __restrict__ mask,
+                            const float* __restrict__ h0,
+                            const float* __restrict__ c0,
+                            bf16* __restrict__ ys, bf16* __restrict__ cs,
+                            G* __restrict__ gates, float* __restrict__ hT,
+                            float* __restrict__ cT, bf16* __restrict__ xh,
+                            int steps, int rows) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int H = NB * pc::kUnits;
+  FwdRec<G> a{zx, nullptr, nullptr, nullptr, wh, bias, mask, h0, c0, ys, cs,
+              gates, hT, cT, xh + (size_t)blockIdx.y * pc::kRows * H,
+              (size_t)gridDim.y * pc::kRows * H, steps, rows,
+              (int)blockIdx.y * pc::kRows, rows};
+  fwd_recurrence<NB, G, false>(a, smem);
+}
+
+// One projection stage of the stack: layer l >= 1's input projection of
+// the tile, zx_l[t][rows, C_j] = bf16(ys_{l-1}[t]) . Wx_l[:, C_j] in fp32
+// (tile_product with Wx's slice resident), into the ring that recurrence
+// stage l reads, for all T steps.  Feed-forward: no cluster barrier.  Step
+// t waits for ys_{l-1}[t] (in_ready: the flags of recurrence stage l-1) and
+// for its ring slot (slot_free: recurrence stage l has finished step
+// t - kRingDepth).
+// ys_in reads exactly what the TPU kernel feeds the product, bf16 of the
+// masked h (lstm_fused.py:107 and :123).
+struct FwdProj {
+  const bf16* ys_in;           // [T, B, H], layer l-1
+  const bf16* wx;              // [H, 4H]
+  float4* ring;
+  const unsigned* in_ready;
+  const unsigned* slot_free;
+  unsigned* done;
+  int steps, rows, row0, row_hi;
+};
+
+template <int NB>
+__device__ __forceinline__ void fwd_projection(const FwdProj& a,
+                                               unsigned char* smem) {
+  using Sm = FwdSmem<NB, bf16>;
+  constexpr int H = Sm::kHidden, P = Sm::kAPitch;
+  bf16* ws = reinterpret_cast<bf16*>(smem);
+  bf16* abuf = reinterpret_cast<bf16*>(smem + Sm::kWs);
+  float* red = reinterpret_cast<float*>(smem + Sm::kWs + Sm::kA + Sm::kHs);
+  const unsigned me = pc::rank();
+  const int tid = threadIdx.x;
+  pc::stage_slice(a.wx, H, me * pc::kUnits, ws);
+  for (int t = 0; t < a.steps; ++t) {
+    if (tid < NB) {
+      pc::spin_until(a.in_ready + tid, t + 1);
+      if (t >= pc::kRingDepth)
+        pc::spin_until(a.slot_free + tid, t - pc::kRingDepth + 1);
+    }
+    __syncthreads();
+    const bf16* src = a.ys_in + (size_t)t * a.rows * H;
+    for (int e = tid; e < pc::kRows * H / 8; e += pc::kThreads) {
+      const int r = e / (H / 8), k = 8 * (e % (H / 8));
+      const bool ok = a.row0 + r < a.row_hi;
+      mma::cp_async16(abuf + r * P + k,
+                      src + (ok ? (size_t)(a.row0 + r) * H + k : 0),
+                      ok ? 16 : 0);
+    }
+    mma::cp_async_commit();
+    mma::cp_async_wait<0>();
+    __syncthreads();
+    float z[4][4];
+    tile_product<H>(abuf, ws, red, z);
+    float4* dst = a.ring +
+                  ((size_t)(t % pc::kRingDepth) * NB + me) * 4 * pc::kThreads +
+                  tid;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      __stcg(dst + g * pc::kThreads,
+             make_float4(z[g][0], z[g][1], z[g][2], z[g][3]));
+    __syncthreads();  // the slot written, abuf and red free
+    if (tid == 0) pc::publish(a.done, t + 1);
+  }
+}
+
+// The stack as a layer wavefront of 2L - 1 stages per 32-row tile, each a
+// cluster of NB blocks, all resident at once (a cooperative launch):
+// recurrence stage l (cluster s = 2l of the tile) runs layer l's
+// fwd_recurrence with Wh_l's slice resident, projection stage l >= 1
+// (s = 2l - 1) fwd_projection with Wx_l's.  Layer 0 runs ahead on the zx
+// stream, stage 2l - 1 follows it through ys_{l-1}, and layer l reads its
+// projection from the ring: in steady state a step costs the slowest
+// stage's step plus nothing, not L recurrence steps.
+//
+// zx [T, B, 4H], wx [L-1, H, 4H], wh [L, H, 4H], ys/cs [L, T, B, H] bf16;
+// bias [L, 4H], mask [T, B], h0/c0/hT/cT [L, B, H] fp32; gates [L, T, B,
+// 4H] bf16 or null.  Scratch: xh [tiles][L][2][32][H] bf16, ring
+// [tiles][L-1][kRingDepth][NB][4][256] float4, step flags [tiles][2L - 1]
+// [NB] (zero on entry).  Grid (NB, tiles (2L - 1)): cluster y = (2L - 1) tile +
+// s runs stage s of the tile of rows [row_lo + 32 tile, + 32) below row_hi.
+template <int NB>
+__global__ void __launch_bounds__(pc::kThreads, 1)
+    lstm_fwd_stack_persist_kernel(
+        const bf16* __restrict__ zx, const bf16* __restrict__ wx,
+        const bf16* __restrict__ wh, const float* __restrict__ bias,
+        const float* __restrict__ mask, const float* __restrict__ h0,
+        const float* __restrict__ c0, bf16* __restrict__ ys,
+        bf16* __restrict__ cs, bf16* __restrict__ gates,
+        float* __restrict__ hT, float* __restrict__ cT,
+        bf16* __restrict__ xh, float4* __restrict__ ring,
+        unsigned* __restrict__ flags, int steps, int rows, int row_lo,
+        int row_hi, int layers) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  constexpr int H = NB * pc::kUnits;
+  const int stages = 2 * layers - 1;
+  const int tile = blockIdx.y / stages, s = blockIdx.y % stages;
+  const int row0 = row_lo + tile * pc::kRows;
+  unsigned* cnt = flags + (size_t)tile * stages * NB;  // stage s: + s NB
+  const size_t whh = (size_t)H * 4 * H, bh = (size_t)rows * H;
+  const size_t ring_len = (size_t)pc::kRingDepth * NB * 4 * pc::kThreads;
+  if (s % 2 == 1) {
+    const int l = (s + 1) / 2;
+    FwdProj a{ys + (size_t)(l - 1) * steps * bh, wx + (size_t)(l - 1) * whh,
+              ring + ((size_t)tile * (layers - 1) + l - 1) * ring_len,
+              cnt + (s - 1) * NB, cnt + (s + 1) * NB, cnt + s * NB, steps,
+              rows, row0, row_hi};
+    fwd_projection<NB>(a, smem);
+    return;
+  }
+  const int l = s / 2;
+  FwdRec<bf16> a{
+      zx,
+      l > 0 ? ring + ((size_t)tile * (layers - 1) + l - 1) * ring_len
+            : nullptr,
+      l > 0 ? cnt + (s - 1) * NB : nullptr, cnt + s * NB,
+      wh + (size_t)l * whh,
+      bias + (size_t)l * 4 * H, mask, h0 + (size_t)l * bh,
+      c0 + (size_t)l * bh, ys + (size_t)l * steps * bh,
+      cs + (size_t)l * steps * bh,
+      gates != nullptr ? gates + (size_t)l * steps * 4 * bh : nullptr,
+      hT + (size_t)l * bh, cT + (size_t)l * bh,
+      xh + ((size_t)tile * layers + l) * 2 * pc::kRows * H,
+      (size_t)pc::kRows * H, steps, rows, row0, row_hi};
+  if (l == 0)
+    fwd_recurrence<NB, bf16, false>(a, smem);
+  else
+    fwd_recurrence<NB, bf16, true>(a, smem);
 }
 
 template <int NB, typename G>
@@ -724,6 +958,56 @@ cudaError_t persist(const void* zx, const void* wh, const float* bias,
     case 16:
       return persist_with<16, G>(zx, wh, bias, mask, h0, c0, ys, cs, gates,
                                  hT, cT, xh, steps, rows, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The stack kernel at H = 32 NB: launch (tiles > 0: tiles row tiles) or
+// query (tiles = 0: how many tiles one launch holds at `layers`).
+template <int NB>
+cudaError_t stack_persist_with(const void* zx, const void* wx,
+                               const void* wh, const float* bias,
+                               const float* mask, const float* h0,
+                               const float* c0, void* ys, void* cs,
+                               void* gates, float* hT, float* cT, void* xh,
+                               void* ring, unsigned* flags, int steps,
+                               int rows, int row_lo, int row_hi, int layers,
+                               int tiles, int* fit, cudaStream_t st) {
+  auto kernel = lstm_fwd_stack_persist_kernel<NB>;
+  constexpr size_t smem = FwdSmem<NB, bf16>::kBytes;
+  if (tiles == 0) {
+    *fit = pc::max_clusters(kernel, NB, smem) / (2 * layers - 1);
+    return cudaSuccess;
+  }
+  return pc::launch_clusters(
+      kernel, NB, tiles * (2 * layers - 1), true, smem, st,
+      static_cast<const bf16*>(zx), static_cast<const bf16*>(wx),
+      static_cast<const bf16*>(wh), bias, mask, h0, c0,
+      static_cast<bf16*>(ys), static_cast<bf16*>(cs),
+      static_cast<bf16*>(gates), hT, cT, static_cast<bf16*>(xh),
+      static_cast<float4*>(ring), flags, steps, rows, row_lo, row_hi,
+      layers);
+}
+
+cudaError_t stack_persist(const void* zx, const void* wx, const void* wh,
+                          const float* bias, const float* mask,
+                          const float* h0, const float* c0, void* ys,
+                          void* cs, void* gates, float* hT, float* cT,
+                          void* xh, void* ring, unsigned* flags, int steps,
+                          int rows, int row_lo, int row_hi, int hidden,
+                          int layers, int tiles, int* fit, cudaStream_t st) {
+  switch (hidden / pc::kUnits) {
+#define LSTM_STACK_CASE(NB)                                                  \
+  case NB:                                                                   \
+    return stack_persist_with<NB>(zx, wx, wh, bias, mask, h0, c0, ys, cs,    \
+                                  gates, hT, cT, xh, ring, flags, steps,  \
+                                  rows, row_lo, row_hi, layers, tiles, fit,  \
+                                  st);
+    LSTM_STACK_CASE(4)
+    LSTM_STACK_CASE(8)
+    LSTM_STACK_CASE(12)
+    LSTM_STACK_CASE(16)
+#undef LSTM_STACK_CASE
   }
   return cudaErrorInvalidValue;
 }
@@ -827,4 +1111,50 @@ extern "C" int lstm_fwd_stack(const void* zx, const void* wx_rest,
     return stack_with<bf16>(zx, wx_rest, wh, bias, mask, h_buf, c, ys, cs,
                             gates, steps, rows, hidden, layers, st);
   return cudaErrorInvalidValue;
+}
+
+// 1 where lstm_fwd_stack_persist and lstm_bwd_stack_persist take (rows,
+// hidden, layers, dtype).
+extern "C" int lstm_stack_persist_ok(int rows, int hidden, int layers,
+                                     int dtype) {
+  return pc::stack_persist_ok(rows, hidden, layers, dtype) ? 1 : 0;
+}
+
+// How many 32-row tiles one launch of the persistent stack forward holds
+// at (hidden, layers): its 2L - 1 clusters a tile must all be resident
+// (cudaOccupancyMaxActiveClusters; 0: none fits, -1: not its route).
+extern "C" int lstm_fwd_stack_persist_tiles(int hidden, int layers) {
+  if (!pc::stack_persist_ok(1, hidden, layers, 1)) return -1;
+  int fit = 0;
+  if (stack_persist(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                    nullptr, nullptr, nullptr, 0, 0, 0, 0, hidden, layers, 0,
+                    &fit, nullptr) != cudaSuccess)
+    return -1;
+  return fit;
+}
+
+// The persistent stack (bf16 only), rows [row_lo, row_hi) of the batch in
+// one cooperative launch of ceil((row_hi - row_lo) / 32) row tiles: zx
+// [T, B, 4H], wx_rest [L-1, H, 4H], wh [L, H, 4H], bias [L, 4H], mask
+// [T, B], h0/c0 [L, B, H] fp32 (read only); ys/cs [L, T, B, H]; gates
+// [L, T, B, 4H] or null; hT/cT [L, B, H] fp32.  Scratch: xh 2 L tiles 32 H
+// bf16, ring (L - 1) tiles 4 32 4H fp32, step flags (2L - 1) tiles H / 32
+// uint32, zero on entry (one set per launch).  A launch the card cannot
+// hold at once is refused (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int lstm_fwd_stack_persist(
+    const void* zx, const void* wx_rest, const void* wh, const float* bias,
+    const float* mask, const float* h0, const float* c0, void* ys, void* cs,
+    void* gates, float* hT, float* cT, void* xh, void* ring,
+    unsigned* flags, int steps, int rows, int row_lo, int row_hi,
+    int hidden, int layers, int dtype, void* stream) {
+  if (!pc::stack_persist_ok(rows, hidden, layers, dtype) || steps < 0 ||
+      row_lo < 0 || row_hi > rows || row_lo >= row_hi)
+    return cudaErrorInvalidValue;
+  const int tiles = (row_hi - row_lo + pc::kRows - 1) / pc::kRows;
+  int fit = 0;
+  return stack_persist(zx, wx_rest, wh, bias, mask, h0, c0, ys, cs, gates,
+                       hT, cT, xh, ring, flags, steps, rows, row_lo,
+                       row_hi, hidden, layers, tiles, &fit,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -187,16 +187,20 @@ def _check_bwd_inputs(gates, wh, mask, cs, c0, dys, dhT, dcT) -> None:
     check_tensors(gates, wh, mask, cs, c0, dys, dhT, dcT)
 
 
-def _route(route, rows: int, hidden: int, dtype: torch.dtype) -> str:
-    """The route a call takes: by shape unless named; a named persistent
-    route on a shape it does not take raises."""
-    fits = persistent_route(rows, hidden, dtype)
+def pick_route(route, fits: bool, shape: str) -> str:
+    """The route a call takes: by shape (fits: the persistent kernels take
+    it) unless named; a named persistent route on a shape it does not take
+    raises."""
     if route is None:
         return "persistent" if fits else "step"
     if route not in ROUTES or (route == "persistent" and not fits):
-        raise ValueError(f"route {route!r} does not take rows={rows}, "
-                         f"hidden={hidden}, {dtype}")
+        raise ValueError(f"route {route!r} does not take {shape}")
     return route
+
+
+def _route(route, rows: int, hidden: int, dtype: torch.dtype) -> str:
+    return pick_route(route, persistent_route(rows, hidden, dtype),
+                      f"rows={rows}, hidden={hidden}, {dtype}")
 
 
 def check_hidden(hidden: int, dtype: torch.dtype) -> None:

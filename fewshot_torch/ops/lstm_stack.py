@@ -1,15 +1,25 @@
 """Multi-layer LSTM recurrence: CUDA kernels, their plain twins, the
 autograd Function, the adapter and the routing predicate.
 
-Port of ``fewshot/ops/lstm_fused.py``.  All L layers advance inside one time
-step (``csrc/lstm_fwd.cu``, ``lstm_fwd_stack``): layer 0 reads the
-precomputed projection zx = x @ Wx_0, and each layer l >= 1 projects layer
-l-1's masked fp32 h of the same step inside the kernel, so the inter-layer
-activations never round through a stream.  The backward
-(``csrc/lstm_bwd.cu``, ``lstm_bwd_stack``) runs all layers of one step in
-reverse time, top layer first; a lower layer's incoming dh is the layer
-above's dz contracted with its Wx^T inside the kernel.  dWh and dWx are bulk
-products over the saved streams.
+Port of ``fewshot/ops/lstm_fused.py``.  Layer 0 reads the precomputed
+projection zx = x @ Wx_0, and each layer l >= 1 projects bf16 of layer
+l-1's masked h of the same step; the backward runs in reverse time, top
+layer first, and a lower layer's incoming dh is the layer above's bf16 dz
+contracted with its Wx^T.  dWh and dWx are bulk products over the saved
+streams.
+
+Two routes, chosen by shape (``stack_persistent_route``), never by failure:
+bf16 at H = 128..512 (a multiple of 128) with (2L - 1) H / 32 blocks a row
+tile within ``STACK_MAX_BLOCKS`` runs the persistent stack
+(``csrc/lstm_fwd.cu`` ``lstm_fwd_stack_persist``, ``csrc/lstm_bwd.cu``
+``lstm_bwd_stack_persist``): a layer wavefront of 2L - 1 thread-block
+clusters per 32-row tile (a recurrence per layer, a projection per layer
+above the first) handing off through step flags and rings in L2, one
+cooperative launch for as many row tiles as the card holds at once
+(``stack_row_splits``).  Co-residency is the launch's contract: a launch
+the card cannot hold is refused, never run in part.  fp32, and every other
+stack, run the step kernels (``lstm_fwd_stack``, ``lstm_bwd_stack``: one
+launch per layer and time step).
 
 ``stack_fused_supported`` is a copy of the JAX package's predicate,
 including its TPU VMEM arithmetic, so that one config runs the same kernel
@@ -25,9 +35,61 @@ from fewshot_torch.models.lstm import cell_update, matmul_f32
 from fewshot_torch.ops import _ext
 from fewshot_torch.ops._ext import (DTYPE_CODE, check_tensors, contiguous_as,
                                     needs_grad, stream)
-from fewshot_torch.ops.lstm_layer import (_check_fp32, cell_bwd, check_hidden,
-                                          check_hidden_bwd, gate_acts,
-                                          weight_grad)
+from fewshot_torch.ops.lstm_layer import (ROUTES, _check_fp32, cell_bwd,
+                                          check_hidden, check_hidden_bwd,
+                                          gate_acts, persistent_route,
+                                          pick_route, weight_grad)
+
+STACK_MAX_BLOCKS = 96   # csrc/lstm_cluster.cuh kStackMaxBlocks
+STACK_RING = 4          # csrc/lstm_cluster.cuh kRingDepth: ring slots
+TILE_ROWS = 32          # rows of one row tile (csrc/lstm_cluster.cuh kRows)
+
+
+def stack_persistent_route(rows: int, hidden: int, layers: int,
+                           dtype: torch.dtype) -> bool:
+    """Whether the persistent stack kernels take (rows, hidden, layers,
+    dtype): the per-layer persistent route's shapes (bf16, H = 128..512 in
+    steps of 128), at least 2 layers, and a row tile's 2L - 1 clusters of
+    H / 32 blocks within STACK_MAX_BLOCKS.  A mirror of csrc/lstm_cluster.cuh
+    stack_persist_ok; everything else takes the step kernels."""
+    return (persistent_route(rows, hidden, dtype) and layers >= 2
+            and (2 * layers - 1) * (hidden // 32) <= STACK_MAX_BLOCKS)
+
+
+def stack_row_splits(rows: int, tiles: int) -> list[tuple[int, int]]:
+    """The row ranges [lo, hi) of the consecutive launches of one call:
+    row tiles never interact, so each launch takes at most `tiles` 32-row
+    tiles (as many as the card holds at once)."""
+    per = TILE_ROWS * tiles
+    return [(lo, min(lo + per, rows)) for lo in range(0, rows, per)]
+
+
+_tiles_cache: dict = {}
+
+
+def launch_tiles(kernel: str, hidden: int, layers: int,
+                 device: torch.device) -> int:
+    """How many row tiles one launch of the persistent stack kernel
+    (``lstm_fwd`` or ``lstm_bwd``) holds on this card, from the occupancy
+    query; raises where the card cannot hold even one."""
+    key = (kernel, hidden, layers, device.index)
+    if key not in _tiles_cache:
+        fn = getattr(_ext.load(kernel), f"{kernel}_stack_persist_tiles")
+        with torch.cuda.device(device):
+            _tiles_cache[key] = fn(hidden, layers)
+    if _tiles_cache[key] < 1:
+        raise RuntimeError(
+            f"{kernel}_stack_persist: the card holds no row tile's "
+            f"{2 * layers - 1} clusters of {hidden // 32} blocks at once")
+    return _tiles_cache[key]
+
+
+def _route(route, rows: int, hidden: int, layers: int,
+           dtype: torch.dtype) -> str:
+    return pick_route(route,
+                      stack_persistent_route(rows, hidden, layers, dtype),
+                      f"rows={rows}, hidden={hidden}, layers={layers}, "
+                      f"{dtype}")
 
 
 def _check_inputs(zx, wx_rest, wh, b, mask, h0, c0) -> None:
@@ -117,44 +179,79 @@ def lstm_stack_fwd_plain(zx, wx_rest, wh, b, mask, h0, c0, save_gates=False):
     return out
 
 
-def lstm_stack_fwd(zx, wx_rest, wh, b, mask, h0, c0, save_gates=False):
-    """The whole stack's recurrence: the CUDA kernel on CUDA tensors, the
-    plain twin on CPU tensors.  Same arguments and results as the twin.
+def lstm_stack_fwd(zx, wx_rest, wh, b, mask, h0, c0, save_gates=False,
+                   route=None):
+    """The whole stack's recurrence: the CUDA kernels on CUDA tensors, the
+    plain twin on CPU tensors.  Same arguments and results as the twin;
+    route (None: by shape) names the kernels.
 
-    ``lstm_stack_fwd.launches`` counts the calls that launched the kernel
-    (one call launches L step kernels per time step)."""
+    ``lstm_stack_fwd.launches`` counts the calls that launched a kernel,
+    ``lstm_stack_fwd.route_launches`` them by route (a persistent call is
+    one launch per ``stack_row_splits`` range; a step call L launches per
+    time step)."""
     _check_inputs(zx, wx_rest, wh, b, mask, h0, c0)
+    t_, b_, four_h = zx.shape
+    n_layers, hidden = wh.shape[0], four_h // 4
+    route = _route(route, b_, hidden, n_layers, zx.dtype)
     if zx.device.type == "cpu":
         return lstm_stack_fwd_plain(zx, wx_rest, wh, b, mask, h0, c0,
                                     save_gates)
     if zx.device.type != "cuda":
         raise ValueError(f"no LSTM kernel for device {zx.device}")
-    t_, b_, four_h = zx.shape
-    n_layers, hidden = wh.shape[0], four_h // 4
     lib = _ext.load("lstm_fwd")
     # as in lstm_layer_fwd: inputs and outputs on zx's device, made current
     with torch.cuda.device(zx.device):
-        h_buf = torch.empty((2, n_layers, b_, hidden), dtype=torch.float32,
-                            device=zx.device)
-        h_buf[0].copy_(h0)
-        c = c0.clone()
         ys = torch.empty((n_layers, t_, b_, hidden), dtype=zx.dtype,
                          device=zx.device)
         cs = torch.empty_like(ys)
         gates = (torch.empty((n_layers, t_, b_, four_h), dtype=zx.dtype,
                              device=zx.device) if save_gates else None)
-        err = lib.lstm_fwd_stack(
-            zx.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(), b.data_ptr(),
-            mask.data_ptr(), h_buf.data_ptr(), c.data_ptr(), ys.data_ptr(),
-            cs.data_ptr(), gates.data_ptr() if save_gates else None, t_, b_,
-            hidden, n_layers, DTYPE_CODE[zx.dtype], stream(zx))
-    _ext.check(err, "lstm_fwd_stack")
+        gates_ptr = gates.data_ptr() if save_gates else None
+        if route == "persistent":
+            h, c = torch.empty_like(h0), torch.empty_like(c0)
+            splits = stack_row_splits(
+                b_, launch_tiles("lstm_fwd", hidden, n_layers, zx.device))
+            tiles = -(-(splits[0][1] - splits[0][0]) // TILE_ROWS)
+            # h's exchange per (tile, layer), x . Wx's ring per (tile,
+            # layer >= 1), and per launch the step flags (zero) of each
+            # (tile, stage, block)
+            xh = torch.empty((tiles, n_layers, 2, TILE_ROWS, hidden),
+                             dtype=zx.dtype, device=zx.device)
+            ring = torch.empty((tiles, n_layers - 1, STACK_RING, TILE_ROWS,
+                                four_h), device=zx.device)
+            flags = torch.zeros((len(splits), tiles, 2 * n_layers - 1,
+                                 hidden // 32), dtype=torch.int32,
+                                device=zx.device)
+            for i, (lo, hi) in enumerate(splits):
+                err = lib.lstm_fwd_stack_persist(
+                    zx.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(),
+                    b.data_ptr(), mask.data_ptr(), h0.data_ptr(),
+                    c0.data_ptr(), ys.data_ptr(), cs.data_ptr(), gates_ptr,
+                    h.data_ptr(), c.data_ptr(), xh.data_ptr(),
+                    ring.data_ptr(), flags[i].data_ptr(), t_, b_, lo, hi,
+                    hidden, n_layers, DTYPE_CODE[zx.dtype], stream(zx))
+                if err:
+                    break
+        else:
+            h_buf = torch.empty((2, n_layers, b_, hidden),
+                                dtype=torch.float32, device=zx.device)
+            h_buf[0].copy_(h0)
+            c = c0.clone()
+            err = lib.lstm_fwd_stack(
+                zx.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(),
+                b.data_ptr(), mask.data_ptr(), h_buf.data_ptr(),
+                c.data_ptr(), ys.data_ptr(), cs.data_ptr(), gates_ptr, t_,
+                b_, hidden, n_layers, DTYPE_CODE[zx.dtype], stream(zx))
+            h = h_buf[t_ % 2]
+    _ext.check(err, f"lstm_fwd_stack ({route})")
     lstm_stack_fwd.launches += 1
-    out = (ys, cs, h_buf[t_ % 2], c)
+    lstm_stack_fwd.route_launches[route] += 1
+    out = (ys, cs, h, c)
     return out + (gates,) if save_gates else out
 
 
 lstm_stack_fwd.launches = 0
+lstm_stack_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def lstm_stack_bwd_plain(gates, wx_rest, wh, mask, cs, c0, dys, dhT, dcT):
@@ -193,38 +290,77 @@ def lstm_stack_bwd_plain(gates, wx_rest, wh, mask, cs, c0, dys, dhT, dcT):
             torch.stack(dh_c), torch.stack(dc_c), db)
 
 
-def lstm_stack_bwd(gates, wx_rest, wh, mask, cs, c0, dys, dhT, dcT):
-    """The whole stack's BPTT: the CUDA kernel on CUDA tensors, the plain
-    twin on CPU tensors.  Same arguments and results as the twin.
+def lstm_stack_bwd(gates, wx_rest, wh, mask, cs, c0, dys, dhT, dcT,
+                   route=None):
+    """The whole stack's BPTT: the CUDA kernels on CUDA tensors, the plain
+    twin on CPU tensors.  Same arguments and results as the twin; route
+    (None: by shape) names the kernels.
 
-    ``lstm_stack_bwd.launches`` counts the calls that launched the kernel
-    (one call launches L step kernels per time step, plus L)."""
+    ``lstm_stack_bwd.launches`` counts the calls that launched a kernel,
+    ``lstm_stack_bwd.route_launches`` them by route (a persistent call is
+    one launch per ``stack_row_splits`` range; a step call L launches per
+    time step, plus L)."""
     _check_bwd_inputs(gates, wx_rest, wh, mask, cs, c0, dys, dhT, dcT)
+    n_layers, t_, b_, four_h = gates.shape
+    hidden = four_h // 4
+    route = _route(route, b_, hidden, n_layers, gates.dtype)
     if gates.device.type == "cpu":
         return lstm_stack_bwd_plain(gates, wx_rest, wh, mask, cs, c0, dys,
                                     dhT, dcT)
     if gates.device.type != "cuda":
         raise ValueError(f"no LSTM kernel for device {gates.device}")
-    n_layers, t_, b_, four_h = gates.shape
     lib = _ext.load("lstm_bwd")
     with torch.cuda.device(gates.device):
-        dh = dhT.clone()
-        dc = dcT.clone()
         dzx = torch.empty_like(gates)
-        db = torch.zeros(((b_ + 15) // 16, n_layers, four_h),
-                         device=gates.device)
-        err = lib.lstm_bwd_stack(
-            gates.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(),
-            mask.data_ptr(), cs.data_ptr(), c0.data_ptr(), dys.data_ptr(),
-            dh.data_ptr(), dc.data_ptr(), dzx.data_ptr(), db.data_ptr(), t_,
-            b_, four_h // 4, n_layers, DTYPE_CODE[gates.dtype],
-            stream(gates))
-    _ext.check(err, "lstm_bwd_stack")
+        if route == "persistent":
+            dh, dc = torch.empty_like(dhT), torch.empty_like(dcT)
+            splits = stack_row_splits(
+                b_, launch_tiles("lstm_bwd", hidden, n_layers, gates.device))
+            tiles = -(-(splits[0][1] - splits[0][0]) // TILE_ROWS)
+            # one partial of db per row tile and layer, every entry
+            # written; per (tile, stage) the dh partials' exchange (two
+            # halves of [H, H] fp32), per (tile, layer < L-1) the ring of
+            # the dh from above, and per launch the step flags (zero)
+            db = torch.empty((-(-b_ // TILE_ROWS), n_layers, four_h),
+                             device=gates.device)
+            xbuf = torch.empty((tiles, 2 * n_layers - 1, 2, hidden, hidden),
+                               device=gates.device)
+            ring = torch.empty((tiles, n_layers - 1, STACK_RING, TILE_ROWS,
+                                hidden), device=gates.device)
+            flags = torch.zeros((len(splits), tiles, 2 * n_layers - 1,
+                                 hidden // 32), dtype=torch.int32,
+                                device=gates.device)
+            for i, (lo, hi) in enumerate(splits):
+                err = lib.lstm_bwd_stack_persist(
+                    gates.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(),
+                    mask.data_ptr(), cs.data_ptr(), c0.data_ptr(),
+                    dys.data_ptr(), dhT.data_ptr(), dcT.data_ptr(),
+                    dh.data_ptr(), dc.data_ptr(), dzx.data_ptr(),
+                    db[lo // TILE_ROWS].data_ptr(), xbuf.data_ptr(),
+                    ring.data_ptr(), flags[i].data_ptr(), t_, b_, lo, hi,
+                    hidden, n_layers, DTYPE_CODE[gates.dtype],
+                    stream(gates))
+                if err:
+                    break
+        else:
+            dh = dhT.clone()
+            dc = dcT.clone()
+            db = torch.zeros(((b_ + 15) // 16, n_layers, four_h),
+                             device=gates.device)
+            err = lib.lstm_bwd_stack(
+                gates.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(),
+                mask.data_ptr(), cs.data_ptr(), c0.data_ptr(),
+                dys.data_ptr(), dh.data_ptr(), dc.data_ptr(), dzx.data_ptr(),
+                db.data_ptr(), t_, b_, hidden, n_layers,
+                DTYPE_CODE[gates.dtype], stream(gates))
+    _ext.check(err, f"lstm_bwd_stack ({route})")
     lstm_stack_bwd.launches += 1
+    lstm_stack_bwd.route_launches[route] += 1
     return dzx, dh, dc, db.sum(dim=0)
 
 
 lstm_stack_bwd.launches = 0
+lstm_stack_bwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def check_train_tiles(rows: int, hidden: int, n_layers: int,
