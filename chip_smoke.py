@@ -11,11 +11,11 @@ Phases, each of which exits non-zero on failure:
   1. the card's name and power limit (nvidia-smi);
   2. build the CUDA kernels from fewshot_torch/ops/csrc (one nvcc per
      source, all started together; sm_90a), and count the tensor-core
-     (HMMA) instructions in the SASS of the eight bf16 tensor-core kernels
+     (HMMA) instructions in the SASS of the nine bf16 tensor-core kernels
      (the persistent LSTM forward and backward, per layer and for the
-     stack, the head+CE backward, the prefix-attention forward, dq and
-     dk/dv); a kernel with none, or one that spills registers (ptxas -v),
-     fails the run;
+     stack, the head+CE forward and backward, the prefix-attention
+     forward, dq and dk/dv); a kernel with none, or one that spills
+     registers (ptxas -v), fails the run;
   3. each recurrence kernel against its plain PyTorch twin at full width
      (E=256, H=512, 2 layers; bf16 and fp32; ragged masks): the two
      forward kernels (and their train-mode gate activations) and the two
@@ -56,9 +56,13 @@ Phases, each of which exits non-zero on failure:
      (R = B*Q*(L-1) rows, D=256, V=5000, neither a multiple of the 64-wide
      tiles; targets at 0 and V-1), with torch.logsumexp of the dense
      logits (its autograd backward alone for the backward) as the
-     yardstick, and the backward's two launches on the same inputs
-     bit-identical; after 4-7, so that those phases run in a process like
-     the one before the V=5000 path existed;
+     yardstick, and each kernel's two launches on the same inputs
+     bit-identical; the bf16 forward's time at each vocab split 1-8 beside
+     the split it takes; then both kernels, both dtypes, against their
+     twins at head widths D = 1024 and 2048 (300 rows, V=5000: the
+     D-chunked bf16 kernels and the sliced fp32 backward), timed; after
+     4-7, so that those phases run in a process like the one before the
+     V=5000 path existed;
   9. training phase C, the V=5000 neural-cache stack
      (scripts/scale_quality.py's plain_cache_full_floor leg: mean_state,
      B=32, global backoff, calibration, dynamic cache, responsibility floor
@@ -158,6 +162,8 @@ GRAD_TOL = 5e-2
 HEAD_FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 HEAD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 HEAD_D = E              # the tied head's inner width
+WIDE_HEAD_D = (1024, 2048)   # head widths past the resident tiles
+WIDE_HEAD_ROWS = 300         # rows of the wide-head check (ragged tiles)
 # prefix-attention kernels against their twins: out absolute, lse absolute;
 # fp32 only in summation order.  bf16: the kernels round the unnormalised p
 # against the running row maximum of their online softmax, the twins
@@ -808,43 +814,81 @@ def head_library_ms(h2, w, b, t, cot=None):
         return cuda_ms(run, KERNEL_REPS)
 
 
+def head_inputs(gen, dev, dtype, rows: int, d: int, vocab: int):
+    """h2 [rows, d], the tied head w [d, vocab] (a transposed view of a
+    [vocab, d] table), b, targets (0 and vocab - 1 among them), dlse, dtl."""
+    h2 = torch.randn((rows, d), generator=gen).to(dev, dtype)
+    table = torch.randn((vocab, d), generator=gen) * d ** -0.5
+    w = table.to(dev).T
+    b = (torch.randn(vocab, generator=gen) * 0.5).to(dev)
+    t = torch.randint(0, vocab, (rows,), generator=gen)
+    t[0], t[-1] = 0, vocab - 1
+    dlse = torch.rand((rows,), generator=gen).to(dev)
+    dtl = -torch.rand((rows,), generator=gen).to(dev)
+    return h2, w, b, t.to(dev), dlse, dtl
+
+
+def head_checks(h2, w, b, t, dlse, dtl, dtype, records, key) -> None:
+    """Kernels 5 and 6 against their twins on these inputs, each with its
+    second launch's bits, into records[(key_fwd / key_bwd, dtype)]."""
+    from fewshot_torch.ops import head_ce
+    rows, d = h2.shape
+    products = 2.0 * rows * d * w.shape[1]
+    fwd = check_kernel(
+        "head_ce_fwd", head_ce.head_ce_fwd, head_ce.head_lse_tgt_plain,
+        (h2, w, b, t), [HEAD_FWD_TOL[dtype]] * 2, False, products, dtype,
+        lambda: head_library_ms(h2, w, b, t))
+    with torch.no_grad():
+        lse, _ = head_ce.head_lse_tgt_plain(h2, w, b, t)
+    # the function's least work: the logits once, dh2 and dw (the
+    # kernels recompute the logits in each of their two passes)
+    bargs = (h2, w, b, t, lse, dlse, dtl)
+    bwd = check_kernel(
+        "head_ce_bwd", head_ce.head_ce_bwd, head_ce.head_lse_tgt_bwd_plain,
+        bargs, [HEAD_BWD_TOL[dtype]] * 3, True, 3 * products, dtype,
+        lambda: head_library_ms(h2, w, b, t, (dlse, dtl)))
+    # two launches on the same inputs: the same bits
+    for name, rec, fn in (
+            ("head_ce_fwd", fwd, lambda: head_ce.head_ce_fwd(h2, w, b, t)),
+            ("head_ce_bwd", bwd, lambda: head_ce.head_ce_bwd(*bargs))):
+        same = same_bits(fn)
+        rec["deterministic"] = same
+        log(f"  {name} {dtype} D={d}: two launches bit-identical: {same}")
+        if not same:
+            raise RuntimeError(f"{name} {dtype} D={d} is not deterministic")
+    records[(key + "_fwd", dtype)] = fwd
+    records[(key + "_bwd", dtype)] = bwd
+
+
 def head_kernel_phase(dev, rows: int, vocab: int) -> dict:
-    """Kernels 5 and 6 against their twins at training C's head shape."""
+    """Kernels 5 and 6 against their twins at training C's head shape, the
+    bf16 forward's time at each vocab split, and both kernels at the wide
+    head widths."""
     from fewshot_torch.ops import head_ce
     gen = torch.Generator().manual_seed(1)
     records = {}
     for dtype in (torch.bfloat16, torch.float32):
-        h2 = torch.randn((rows, HEAD_D), generator=gen).to(dev, dtype)
-        # the tied head: w [D, V] is the embedding table [V, D] transposed
-        table = torch.randn((vocab, HEAD_D), generator=gen) * HEAD_D ** -0.5
-        w = table.to(dev).T
-        b = (torch.randn(vocab, generator=gen) * 0.5).to(dev)
-        t = torch.randint(0, vocab, (rows,), generator=gen)
-        t[0], t[-1] = 0, vocab - 1
-        t = t.to(dev)
-        products = 2.0 * rows * HEAD_D * vocab
-        records[("head_fwd", dtype)] = check_kernel(
-            "head_ce_fwd", head_ce.head_ce_fwd, head_ce.head_lse_tgt_plain,
-            (h2, w, b, t), [HEAD_FWD_TOL[dtype]] * 2, False, products, dtype,
-            lambda: head_library_ms(h2, w, b, t))
-        with torch.no_grad():
-            lse, _ = head_ce.head_lse_tgt_plain(h2, w, b, t)
-        dlse = torch.rand((rows,), generator=gen).to(dev)
-        dtl = -torch.rand((rows,), generator=gen).to(dev)
-        # the function's least work: the logits once, dh2 and dw (the
-        # kernels recompute the logits in each of their two passes)
-        bargs = (h2, w, b, t, lse, dlse, dtl)
-        records[("head_bwd", dtype)] = check_kernel(
-            "head_ce_bwd", head_ce.head_ce_bwd,
-            head_ce.head_lse_tgt_bwd_plain, bargs,
-            [HEAD_BWD_TOL[dtype]] * 3, True, 3 * products, dtype,
-            lambda: head_library_ms(h2, w, b, t, (dlse, dtl)))
-        # two launches on the same inputs: the same bits
-        same = same_bits(lambda: head_ce.head_ce_bwd(*bargs))
-        records[("head_bwd", dtype)]["deterministic"] = same
-        log(f"  head_ce_bwd {dtype}: two launches bit-identical: {same}")
-        if not same:
-            raise RuntimeError(f"head_ce_bwd {dtype} is not deterministic")
+        ins = head_inputs(gen, dev, dtype, rows, HEAD_D, vocab)
+        head_checks(*ins, dtype, records, "head")
+        if dtype == torch.bfloat16:   # the split at this and a few rows
+            fwd = records[("head_fwd", dtype)]
+            for n, h2 in ((rows, ins[0]), (WIDE_HEAD_ROWS,
+                                           ins[0][:WIDE_HEAD_ROWS])):
+                t = ins[3][:n]
+                split = head_ce.fwd_splits(n, vocab, HEAD_D)
+                with torch.no_grad():
+                    ms = {s: cuda_ms(lambda: head_ce.head_ce_fwd(
+                        h2, ins[1], ins[2], t, splits=s), KERNEL_REPS)
+                        for s in range(1, 9)}
+                fwd.setdefault("split", {})[n] = {"splits": split,
+                                                  "ms_by_split": ms}
+                log(f"  head_ce_fwd bf16 at {n} rows: split {split}; ms by "
+                    f"split {ms}")
+    for d in WIDE_HEAD_D:
+        log(f"  wide head: {WIDE_HEAD_ROWS} x {d} x {vocab}")
+        for dtype in (torch.bfloat16, torch.float32):
+            ins = head_inputs(gen, dev, dtype, WIDE_HEAD_ROWS, d, vocab)
+            head_checks(*ins, dtype, records, f"head_d{d}")
     return records
 
 
@@ -1390,6 +1434,7 @@ TENSOR_CORE = {"lstm_layer_fwd": ("lstm_fwd", "lstm_fwd_persist_kernel"),
                                   "lstm_fwd_stack_persist_kernel"),
                "lstm_stack_bwd": ("lstm_bwd",
                                   "lstm_bwd_stack_persist_kernel"),
+               "head_ce_fwd": ("head_ce", "head_ce_fwd_tc"),
                "head_ce_bwd": ("head_ce", "head_ce_bwd_tc"),
                "prefix_attn_fwd": ("prefix_attn", "fwd_tc_kernel"),
                "prefix_attn_bwd_dq": ("prefix_attn", "dq_tc_kernel"),
@@ -1622,9 +1667,21 @@ def main() -> int:
             rec["library_fwd_bwd_ms"] = r["library_fwd_bwd_ms"]
         if name in TENSOR_CORE:
             rec["bf16_route"] = "tensor cores (mma.sync bf16)"
+            rec["bf16_kernel"] = TENSOR_CORE[name][1]
             rec["sass_hmma"] = hmma[name]
         if "deterministic" in r:
             rec["deterministic"] = r["deterministic"] and f["deterministic"]
+        if key.startswith("head_"):      # kernels 5-6 at the wide widths
+            rec["wide_head"] = {
+                f"D={d}": {dt: {k: records[(f"head_d{d}_{key[5:]}", x)][k]
+                                for k in ("shape", "max_abs_err", "ms",
+                                          "plain_ms", "bound_ms",
+                                          "library_ms", "deterministic")}
+                           for dt, x in (("bfloat16", torch.bfloat16),
+                                         ("float32", torch.float32))}
+                for d in WIDE_HEAD_D}
+        if "split" in r:                 # kernel 5's vocab split
+            rec["split"] = r["split"]
         if "library_runs" in r:
             rec["library_runs"] = r["library_runs"]
             rec["library_busy_ms"] = r["library_busy_ms"]

@@ -53,6 +53,8 @@ SIGNATURES = {
     },
     "head_ce": {
         "head_ce_fwd": [_P] * 6 + [_I] * 4 + [_P],
+        "head_ce_fwd_split": [_P] * 6 + [_I] * 4 + [_P],
+        "head_ce_fwd_splits": [_I] * 3,
         "head_ce_bwd": [_P] * 10 + [_I] * 5 + [_P],
     },
     "prefix_attn": {

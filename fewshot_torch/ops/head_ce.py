@@ -9,9 +9,14 @@ a running (max, sum-exp) over 64-column tiles; the backward
 (``head_ce_bwd``) recomputes each logits tile, forms dlogits = dlse p + dtl
 onehot(target), rounds it to the operand dtype, and contracts it into dh2
 (one pass over row tiles) and into per-chunk dW/db partials (one pass over
-vocab tiles) that the wrapper adds up.  bf16 backs onto the tensor-core
-backward (mma.sync bf16 tiles, register accumulators); fp32, and the
-forward in both dtypes, onto the v1 SIMT kernels.
+vocab tiles) that the wrapper adds up.  bf16 runs on tensor-core kernels
+(mma.sync bf16 tiles, register accumulators): the forward splits each row
+tile's vocab walk over a cluster of blocks whose partial (max, sum-exp,
+target logit) one block merges in chunk order.  fp32 runs the v1 SIMT
+kernels.  Both take any head width D that is a multiple of 64: past the
+width where a block's [64, D] tiles fit in shared memory, the kernels
+stage D in 256-wide chunks (bf16) or cut the backward's output into
+256-wide slices (fp32).
 
 Rounding points are the TPU kernels': operands in the compute dtype with
 fp32 products and sums, w cast to h2's dtype, dlogits rounded before both
@@ -21,8 +26,7 @@ dtype and dw in fp32 (then w's dtype).
 ``head_ce_fwd`` and ``head_ce_bwd`` run the kernels on CUDA tensors and the
 plain twins on CPU tensors; there is no fallback from one to the other.
 ``fused_head_nll_supported`` routes where the JAX package's predicate
-does, so one config takes the fused head in both packages; on the card the
-backward takes D up to ``max_head_dim`` and raises above it.
+does, so one config takes the fused head in both packages.
 """
 
 from __future__ import annotations
@@ -30,9 +34,8 @@ from __future__ import annotations
 import torch
 
 from fewshot_torch.ops import _ext
-from fewshot_torch.ops._ext import (DTYPE_CODE, SMEM_BYTES, check_tensors,
-                                    contiguous_as, itemsize, needs_grad,
-                                    stream)
+from fewshot_torch.ops._ext import (DTYPE_CODE, check_tensors, contiguous_as,
+                                    itemsize, needs_grad, stream)
 
 _TILE = 64          # rows / vocab columns of a kernel tile (csrc/head_ce.cu)
 
@@ -61,42 +64,16 @@ def fused_head_nll_supported(d: int, v: int,
     """True where the JAX package scores with its fused head+CE kernels: D
     lane-aligned and the TPU's vocab-tiled plan fits, which depends on D
     alone.  JAX tries a VMEM-resident plan first, but below D = 9216
-    (fp32) / 13952 (bf16), far past ``max_head_dim``, it admits no (D, V)
-    that the tiled plan refuses; so v does not change the answer."""
+    (fp32) / 13952 (bf16) it admits no (D, V) that the tiled plan refuses;
+    so v does not change the answer."""
     return d % 128 == 0 and _tiled_tiles(d, itemsize(dtype))[0] >= 8
 
 
-def max_head_dim(dtype: torch.dtype) -> int:
-    """The largest head width D the backward kernels take in dtype (a
-    multiple of 64; the forward takes any multiple of 64).
-
-    fp32 (the v1 SIMT kernels): a block keeps an fp32 [64, D + 16]
-    accumulator in shared memory beside its staging buffers (two
-    double-buffered [64, 32 + 16 B] operand chunks, aliased by one
-    [64, 64 + 16 B] window) and the [64, 65] fp32 dlogits tile.
-    bf16 (the tensor-core kernels): a block keeps a [64, D + 8] bf16 outer
-    tile and two stages of a [32, D + 8] bf16 inner tile with 4 floats per
-    inner row (csrc/head_ce.cu TcLayout; its accumulators live in
-    registers, 256 columns a block)."""
-    if dtype == torch.bfloat16:
-        per_col = 2 * (_TILE + 2 * 32)          # bytes per unit of D + 8
-        return ((SMEM_BYTES - 2 * 4 * 32 * 4) // per_col - 8) // 64 * 64
-    size = itemsize(dtype)
-    vec = 16 // size
-    stage = max(2 * 2 * _TILE * (32 + vec) * size, _TILE * (64 + vec) * size)
-    free = SMEM_BYTES - stage - _TILE * (_TILE + 1) * 4
-    return (free // (_TILE * 4) - 16) // 64 * 64
-
-
-def check_head_dim(d: int, dtype: torch.dtype, train: bool) -> None:
+def check_head_dim(d: int) -> None:
+    """The kernels take any head width D that is a multiple of 64."""
     if d % 64:
         raise ValueError(
             f"the head+CE kernels take D a multiple of 64, got {d}")
-    if train and d > max_head_dim(dtype):
-        raise ValueError(
-            f"head width {d} exceeds the head+CE backward kernels' limit of "
-            f"{max_head_dim(dtype)} for {dtype} (one block's shared memory "
-            f"holds its [64, D] tiles)")
 
 
 # ---------------------------------------------------------------------------
@@ -161,34 +138,52 @@ def _kernel_args(h2, w, b, targets):
     return args
 
 
-def head_ce_fwd(h2, w, b, targets):
+def head_ce_fwd(h2, w, b, targets, splits: int = 0):
     """Per-row (lse, target logit) of h2 @ w + b: the CUDA kernel on CUDA
     tensors, the plain twin on CPU tensors.  Same arguments and results as
-    ``head_lse_tgt_plain``.
+    ``head_lse_tgt_plain``.  splits (bf16 on the card only): the number of
+    vocab chunks (1-8) a row tile's walk is cut into, in place of the
+    kernel's own choice (0, ``fwd_splits``); the results differ only in
+    the order of the sums.
 
     ``head_ce_fwd.launches`` counts the calls that launched the kernel."""
     _check_inputs(h2, w, b, targets)
+    if splits and (h2.dtype != torch.bfloat16 or not 1 <= splits <= 8):
+        raise ValueError(f"splits {splits}: the bf16 forward takes 1-8")
     if h2.device.type == "cpu":
         return head_lse_tgt_plain(h2, w, b, targets)
     if h2.device.type != "cuda":
         raise ValueError(f"no head+CE kernel for device {h2.device}")
     r, d = h2.shape
-    check_head_dim(d, h2.dtype, train=False)
+    check_head_dim(d)
     h2c, wt, bc, tgt = _kernel_args(h2, w, b, targets)
     lib = _ext.load("head_ce")
     with torch.cuda.device(h2.device):
         lse = torch.empty(r, device=h2.device)
         tl = torch.empty(r, device=h2.device)
-        err = lib.head_ce_fwd(h2c.data_ptr(), wt.data_ptr(), bc.data_ptr(),
-                              tgt.data_ptr(), lse.data_ptr(), tl.data_ptr(),
-                              r, wt.shape[0], d, DTYPE_CODE[h2.dtype],
-                              stream(h2))
+        ptrs = (h2c.data_ptr(), wt.data_ptr(), bc.data_ptr(), tgt.data_ptr(),
+                lse.data_ptr(), tl.data_ptr(), r, wt.shape[0], d)
+        err = (lib.head_ce_fwd_split(*ptrs, splits, stream(h2)) if splits
+               else lib.head_ce_fwd(*ptrs, DTYPE_CODE[h2.dtype], stream(h2)))
     _ext.check(err, "head_ce_fwd")
     head_ce_fwd.launches += 1
     return lse, tl
 
 
 head_ce_fwd.launches = 0
+
+
+def fwd_splits(rows: int, vocab: int, d: int,
+               device: torch.device | None = None) -> int:
+    """The number of vocab chunks the bf16 forward kernel cuts a row tile's
+    walk into at this shape on the card: the most (at most 8, at most one a
+    64-column vocab tile) whose blocks the card holds all at once; 1 where
+    the row tiles alone fill that wave."""
+    with torch.cuda.device(device or torch.device("cuda")):
+        n = _ext.load("head_ce").head_ce_fwd_splits(rows, vocab, d)
+    if n < 0:
+        _ext.check(-n, "head_ce_fwd_splits")
+    return n
 
 
 def _dw_splits(rows: int, vocab: int, dtype: torch.dtype,
@@ -219,7 +214,7 @@ def head_ce_bwd(h2, w, b, targets, lse, dlse, dtl):
     if h2.device.type != "cuda":
         raise ValueError(f"no head+CE kernel for device {h2.device}")
     r, d = h2.shape
-    check_head_dim(d, h2.dtype, train=True)
+    check_head_dim(d)
     h2c, wt, bc, tgt = _kernel_args(h2, w, b, targets)
     rows = (lse.contiguous(), dlse.contiguous(), dtl.contiguous())
     check_tensors(*rows)

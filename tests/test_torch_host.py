@@ -9,8 +9,8 @@
 * a kernel library's name follows the bytes of its source and of the
   csrc/ headers it includes, so an edited header is rebuilt (no nvcc
   needed: the name is computed before any build);
-* the prefix-attention kernels' sources hold no atomic operation, so
-  their sums run in a fixed order.
+* the prefix-attention, LSTM and head+CE kernels' sources hold no atomic
+  operation, so their sums run in a fixed order.
 """
 
 import dataclasses
@@ -187,6 +187,19 @@ def test_prefix_attention_sources_have_no_atomics():
         assert not _ATOMIC.search(code), f
     assert _ATOMIC.search("atomicAdd(dq + i, x);")
     assert _ATOMIC.search('asm("red.global.add.f32 [%0], %1;")')
+
+
+def test_head_ce_sources_have_no_atomics():
+    """No atomic (in C++ or PTX) outside comments in head_ce.cu or the
+    headers it includes: the backward's dW/db partials are summed in chunk
+    order by the caller and the bf16 forward's vocab chunks are merged in
+    chunk order by one block of their cluster, so both give the same bits
+    on every launch."""
+    files = _ext.sources("head_ce")
+    assert [f.name for f in files] == ["head_ce.cu", "mma.cuh"]
+    for f in files:
+        code = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read_text(), flags=re.S)
+        assert not _ATOMIC.search(code), f
 
 
 def test_lstm_sources_have_no_atomics():
