@@ -14,8 +14,8 @@ Phases, each of which exits non-zero on failure:
      (HMMA) instructions in the SASS of the nine bf16 tensor-core kernels
      (the persistent LSTM forward and backward, per layer and for the
      stack, the head+CE forward and backward, the prefix-attention
-     forward, dq and dk/dv); a kernel with none, or one that spills
-     registers (ptxas -v), fails the run;
+     forward, dq and dk/dv); a tensor-core kernel with none, or any kernel
+     instance that spills registers (ptxas -v), fails the run;
   3. each recurrence kernel against its plain PyTorch twin at full width
      (E=256, H=512, 2 layers; bf16 and fp32; ragged masks): the two
      forward kernels (and their train-mode gate activations) and the two
@@ -95,7 +95,29 @@ Phases, each of which exits non-zero on failure:
      kernel (its count must rise) within tolerance of the einsum route;
  13. the cfg.flash route (row 10: ops.attention.causal_attention with
      use_flash) through the no-prefix kernel against the einsum route;
- 14. the card line, a {"kernels": [...]} line, then the {"ok": true, ...}
+ 14. the width repairs: kernels 1-2 on their step route in train mode at
+     160 rows x 96 steps and H past the former shared-memory limits (fp32
+     768 and 2048, bf16 1536 and 2560), and kernels 7-9 at the query
+     stream's shape with head widths 24 (padded to 32), 192 and 256 (the
+     column-window kernels), both dtypes: each against its twin with the
+     tolerances of the narrower cases, timed beside its bound and its
+     library call (cuDNN, SDPA), bit-identical on a second launch;
+ 15. the flagship cache recipe through the train CLI
+     (``fewshot_torch.cli train --data configs/data/lyrics.yaml --model
+     configs/model/lstm_pallas.yaml --task
+     configs/task/episodic_cache.yaml``) on the V=5000 corpus: 1000 steps
+     in this process (kernels 3-4 on their persistent route, 2 backward
+     launches a step; kernel 6 once a step), the parameters its checkpoint
+     restores bit-identical to those saved, then ``python -m
+     fewshot_torch.cli`` resumes to the recipe's 2000 steps ("restored
+     checkpoint at step 1000"); the loss falls, val NLL every 200 steps,
+     the final val NLL beside the unigram floor; then served from the
+     checkpoint (21 requests, serve batch 16) with the dynamic cache head:
+     the first decode step's mixed log-probs against the plain route, each
+     row's mixture normalised, the carried counts those of the emitted
+     tokens; the same for configs/model/transformer.yaml (cell=pallas),
+     200 steps (kernels 7-9 and 6 every step), its prefill on kernel 7;
+ 16. the card line, a {"kernels": [...]} line, then the {"ok": true, ...}
      line.
 
 Weights are random from a seed; the corpora (the bench corpus and the
@@ -282,12 +304,14 @@ def cudnn_lstm(wh, b, in_dim, layers, dtype):
     an uncompacted module copies its weights into a new buffer at every
     call (PyTorch warns so), which moved the bf16 timings up to 1.6x."""
     import torch.backends.cudnn.rnn as cudnn_rnn
-    lstm = torch.nn.LSTM(in_dim, H, num_layers=layers, device=wh.device,
+    hid = wh.shape[-2]
+    lstm = torch.nn.LSTM(in_dim, hid, num_layers=layers, device=wh.device,
                          dtype=dtype)
-    perm = torch.cat([torch.arange(0, H), torch.arange(2 * H, 3 * H),
-                      torch.arange(H, 2 * H), torch.arange(3 * H, 4 * H)])
+    perm = torch.cat([torch.arange(0, hid), torch.arange(2 * hid, 3 * hid),
+                      torch.arange(hid, 2 * hid),
+                      torch.arange(3 * hid, 4 * hid)])
     bias = b.float().clone()
-    bias[..., 2 * H:3 * H] += 1.0
+    bias[..., 2 * hid:3 * hid] += 1.0
     with torch.no_grad():
         for l in range(layers):
             w = wh[l] if wh.dim() == 3 else wh
@@ -297,7 +321,7 @@ def cudnn_lstm(wh, b, in_dim, layers, dtype):
             getattr(lstm, f"bias_hh_l{l}").zero_()
         torch._cudnn_rnn_flatten_weight(
             lstm._flat_weights, 4, in_dim, cudnn_rnn.get_cudnn_mode("LSTM"),
-            H, 0, layers, False, False)
+            hid, 0, layers, False, False)
     return lstm
 
 
@@ -921,12 +945,12 @@ def attn_library_ms(q, k, v, kmask, pk, pv, pmask, nh, g=None):
         return cuda_ms(run, KERNEL_REPS)
 
 
-def attn_inputs(gen, dev, dtype, b, q_, t, p):
-    """Random streams and ragged masks at one attention shape: S = b q_
-    songs of t rows with key masks t' < len (len >= 2, so every row has a
-    real key), and (p > 0) an episode prefix of 5 support songs of p / 5
-    slots each, every song at least 1 token long."""
-    s_, e = b * q_, 2 * ATTN_HD
+def attn_inputs(gen, dev, dtype, b, q_, t, p, hd=ATTN_HD):
+    """Random streams and ragged masks at one attention shape (nh = 2
+    heads of hd): S = b q_ songs of t rows with key masks t' < len (len >=
+    2, so every row has a real key), and (p > 0) an episode prefix of 5
+    support songs of p / 5 slots each, every song at least 1 token long."""
+    s_, e = b * q_, 2 * hd
     rnd = lambda *sh: torch.randn(sh, generator=gen).to(dev, dtype)  # noqa
     lens = torch.randint(2, t + 2, (s_,), generator=gen)
     kmask = (torch.arange(t)[None] < lens[:, None] - 1).float().to(dev)
@@ -952,21 +976,22 @@ def attn_pairs(kmask, pmask, rep) -> float:
     return pairs
 
 
-def attn_kernel_phase(dev, shapes) -> dict:
+def attn_kernel_phase(dev, shapes, hd=ATTN_HD, seed=2) -> dict:
     """The three prefix-attention kernels against their twins at the
-    training path's shapes: shapes = {label: (B, Q, T, P)}.  Bound: the
-    inputs read once and the outputs written once against the products the
-    function needs over its real (row, key) pairs: 2 in the forward (q k^T,
-    p v), 3 for dq (q k^T, g v^T, ds k), 4 for dk/dv (q k^T, g v^T, p^T g,
-    ds^T q), each 2 hd operations a pair and head."""
+    training path's shapes: shapes = {label: (B, Q, T, P)}, nh = 2 heads of
+    hd.  Bound: the inputs read once and the outputs written once against
+    the products the function needs over its real (row, key) pairs: 2 in
+    the forward (q k^T, p v), 3 for dq (q k^T, g v^T, ds k), 4 for dk/dv
+    (q k^T, g v^T, p^T g, ds^T q), each 2 hd operations a pair and head.
+    Each kernel gives the same bits on a second launch."""
     from fewshot_torch.ops import prefix_attention as pa
-    gen = torch.Generator().manual_seed(2)
+    gen = torch.Generator().manual_seed(seed)
     records = {}
     for label, (b, q_, t, p) in shapes.items():
         for dtype in (torch.bfloat16, torch.float32):
-            args = attn_inputs(gen, dev, dtype, b, q_, t, p)
+            args = attn_inputs(gen, dev, dtype, b, q_, t, p, hd)
             q, k, v, kmask, pk, pv, pmask, nh = args
-            pair_ops = 2.0 * ATTN_HD * nh * attn_pairs(kmask, pmask, q_)
+            pair_ops = 2.0 * hd * nh * attn_pairs(kmask, pmask, q_)
             records[(f"attn_fwd_{label}", dtype)] = check_kernel(
                 "prefix_attn_fwd", pa.prefix_attn_fwd,
                 pa.prefix_attn_fwd_plain, args,
@@ -988,20 +1013,98 @@ def attn_kernel_phase(dev, shapes) -> dict:
                 [ATTN_BWD_TOL[dtype]] * (2 if pk is None else 4), True,
                 4 * pair_ops, dtype, lambda: attn_library_ms(*args, g=g))
             # two launches on the same inputs: the same bits
-            for key, fn in (("dq", lambda: (pa.prefix_attn_bwd_dq(*bargs),)),
+            for key, fn in (("fwd", lambda: pa.prefix_attn_fwd(*args)),
+                            ("dq", lambda: (pa.prefix_attn_bwd_dq(*bargs),)),
                             ("dkv", lambda: pa.prefix_attn_bwd_dkv(*bargs))):
                 same = same_bits(fn)
                 records[(f"attn_{key}_{label}", dtype)]["deterministic"] = \
                     same
-                log(f"  prefix_attn_bwd_{key} {label} {dtype}: two launches "
+                log(f"  prefix_attn {key} {label} {dtype}: two launches "
                     f"bit-identical: {same}")
                 if not same:
-                    raise RuntimeError(f"prefix_attn_bwd_{key} {label} "
+                    raise RuntimeError(f"prefix_attn {key} {label} "
                                        f"{dtype} is not deterministic")
             for key in ("fwd", "dq", "dkv"):
                 records[(f"attn_{key}_{label}", dtype)]["shape"] = \
-                    [b, q_, t, p, nh, ATTN_HD]
+                    [b, q_, t, p, nh, hd]
     return records
+
+
+# ---------------------------------------------------------------------------
+# the width repairs: kernels 1-2 past their former shared-memory limits,
+# kernels 7-9 at any head width
+# ---------------------------------------------------------------------------
+
+WIDE_LSTM = ((torch.float32, 768), (torch.float32, 2048),
+             (torch.bfloat16, 1536), (torch.bfloat16, 2560))
+WIDE_HD = (24, 192, 256)     # padded to 32; column windows past 128
+
+
+def wide_lstm_phase(dev) -> dict:
+    """Kernels 1-2 on their step route in train mode (the forward saving
+    its gates, then the backward) at 160 rows x 96 steps and hidden widths
+    the whole-row stage refused, against their twins with the tolerances
+    of H = 512; timed beside their bound and cuDNN; two launches give the
+    same bits."""
+    from fewshot_torch.ops import lstm_layer
+    gen = torch.Generator().manual_seed(4)
+    t_, rows = 96, 160
+    records = {}
+    for dtype, hid in WIDE_LSTM:
+        lim = (6.0 / (5 * hid)) ** 0.5
+
+        def rand(*shape, scale=1.0):
+            return (torch.randn(shape, generator=gen) * scale).to(dev)
+        mask = ragged_mask(gen, t_, rows, 1).to(dev)
+        live = float(mask.sum())
+        wh = ((torch.rand((hid, 4 * hid), generator=gen) * 2 - 1)
+              * lim).to(dev, dtype)
+        args = (rand(t_, rows, 4 * hid, scale=0.6).to(dtype), wh,
+                rand(4 * hid, scale=0.1), mask, rand(rows, hid, scale=0.5),
+                rand(rows, hid, scale=0.5))
+        ops = 2.0 * live * hid * 4 * hid
+
+        def fwd(*a):
+            return lstm_layer.lstm_layer_fwd(*a, save_gates=True,
+                                             route="step")
+
+        def fwd_plain(*a):
+            return lstm_layer.lstm_layer_fwd_plain(*a, save_gates=True)
+        key = f"layer_h{hid}"
+        records[(key, dtype)] = check_kernel(
+            f"lstm_layer_fwd H={hid}", fwd, fwd_plain, args,
+            FWD_TOL[dtype] + [GATES_TOL[dtype]], False, ops, dtype,
+            lambda: cudnn_lstm_ms(wh, args[2], t_, rows, hid, 1, dtype))
+        with torch.no_grad():
+            _, cs, _, _, gates = fwd(*args)
+        bargs = (gates, wh, mask, cs, args[5], rand(t_, rows, hid).to(dtype),
+                 rand(rows, hid), rand(rows, hid))
+        records[(key + "_bwd", dtype)] = check_kernel(
+            f"lstm_layer_bwd H={hid}",
+            lambda *a: lstm_layer.lstm_layer_bwd(*a, route="step"),
+            lstm_layer.lstm_layer_bwd_plain, bargs, [BWD_TOL[dtype]] * 4,
+            True, ops, dtype,
+            lambda: cudnn_lstm_ms(wh, args[2], t_, rows, hid, 1, dtype,
+                                  backward=True))
+        for k, fn in ((key, lambda: fwd(*args)),
+                      (key + "_bwd", lambda: lstm_layer.lstm_layer_bwd(
+                          *bargs, route="step"))):
+            same = same_bits(fn)
+            records[(k, dtype)]["deterministic"] = same
+            log(f"  {k} {dtype}: two launches bit-identical: {same}")
+            if not same:
+                raise RuntimeError(f"{k} {dtype} is not deterministic")
+    return records
+
+
+def wide_records(records, keys, dtypes=(torch.bfloat16, torch.float32)):
+    """{key: {dtype: the record's numbers}} for the kernels line."""
+    fields = ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms", "library_fwd_bwd_ms",
+              "deterministic")
+    return {key: {str(dt).replace("torch.", ""): {
+        f: records[(key, dt)][f] for f in fields if f in records[(key, dt)]}
+        for dt in dtypes if (key, dt) in records} for key in keys}
 
 
 # ---------------------------------------------------------------------------
@@ -1039,12 +1142,17 @@ def post(url: str, payload: dict) -> tuple[int, dict, float]:
         return resp.status, body, time.perf_counter() - t0
 
 
-def serving_phase(label, cfg, corpus, dev, counter, persistent=()) -> dict:
+def serving_phase(label, cfg, corpus, dev, counter, persistent=(),
+                  params=None) -> dict:
+    """POST /generate requests to a live server of cfg (random weights from
+    cfg.seed unless params are given: a trained checkpoint's)."""
     from fewshot_torch.models import lm
     from fewshot_torch.serve import Generator, serve
 
-    params = lm.init_lm(cfg, len(corpus.vocab),
-                        torch.Generator().manual_seed(cfg.seed), dev)
+    trained = params is not None
+    if not trained:
+        params = lm.init_lm(cfg, len(corpus.vocab),
+                            torch.Generator().manual_seed(cfg.seed), dev)
     kernel_counters = reset_counts()
     gen = Generator(cfg, corpus, params, batch_size=cfg.batch_size,
                     device=dev)
@@ -1120,13 +1228,20 @@ def serving_phase(label, cfg, corpus, dev, counter, persistent=()) -> dict:
                 gen.params, ep.support, ep.support_len, c, eval_mode=True)
                 for x in hc]
 
-    errs = [max_rel(a, b) for a, b in zip(support(), support(plain_route(
-        cfg)))]
+    want = support(plain_route(cfg))
+    errs = [max_rel(a, b) for a, b in zip(support(), want)]
     if cfg.model == "transformer":
         state_err, tol = max(e[1] for e in errs), KV_TOL
     else:
         state_err, tol = max(e[0] for e in errs), STATE_TOL
-    if not state_err <= tol:
+    log(f"  {label} support pass vs plain route: max abs "
+        f"{max(e[0] for e in errs):.4g}, max rel {max(e[1] for e in errs):.4g}"
+        f", largest entry {max(float(w.abs().max()) for w in want):.4g}")
+    # STATE_TOL and KV_TOL are set for the random weights of serving A-C; a
+    # trained model's state is held where it is served instead, at its
+    # first decode step's mixed log-probs (cache_decode_check), and its
+    # support pass error is recorded
+    if not trained and not state_err <= tol:
         raise RuntimeError(f"{label}: support pass off by {state_err}")
 
     # where a batch's time goes: the support pass (kernels) against the
@@ -1152,6 +1267,9 @@ def serving_phase(label, cfg, corpus, dev, counter, persistent=()) -> dict:
            "warmup_s": gen.warm_s, "launches": launches,
            "route_launches": routes, "launches_per_batch": per_batch,
            "support_pass_err_vs_plain": state_err,
+           "support_pass_rel_err_vs_plain": max(e[1] for e in errs),
+           "support_pass_largest_entry": max(float(w.abs().max())
+                                             for w in want),
            "batch_support_ms": support_ms, "batch_generate_ms": generate_ms,
            "batch_device_busy_ms": busy_ms,
            "batch_device_idle_share": (None if busy_ms is None
@@ -1426,6 +1544,201 @@ def flash_phase(dev) -> dict:
     return rec
 
 
+# ---------------------------------------------------------------------------
+# the flagship cache recipe through the train CLI, then served
+# ---------------------------------------------------------------------------
+
+DATA_YAML = "configs/data/lyrics.yaml"
+TASK_YAML = "configs/task/episodic_cache.yaml"
+LSTM_YAML = "configs/model/lstm_pallas.yaml"
+TFM_YAML = "configs/model/transformer.yaml"
+MIXED_TOL = 2e-2        # first decode step's mixed log-probs vs the plain
+                        # route (the support pass rounds as STATE_TOL's)
+LSE_TOL = 1e-4          # each row's logsumexp of the mixture, about 0
+
+
+def cli_args(model_yaml, corpus_dir, ckpt_dir, sets) -> list:
+    return ["train", "--data", DATA_YAML, "--model", model_yaml,
+            "--task", TASK_YAML, "--checkpt_dir", str(ckpt_dir), "--set",
+            f"corpus_dir={corpus_dir}", *sets]
+
+
+def leg_metrics(ckpt_dir: Path) -> tuple[list, list]:
+    """(loss records, val_nll records) of metrics.jsonl."""
+    recs = [json.loads(x) for x in
+            (ckpt_dir / "metrics.jsonl").read_text().splitlines()]
+    return ([r for r in recs if "loss" in r],
+            [r for r in recs if "val_nll" in r])
+
+
+def cli_leg(label, model_yaml, corpus, corpus_dir, ckpt_dir, sets, steps,
+            exact, dev, persistent=(), resume_steps=None) -> dict:
+    """Train through ``fewshot_torch.cli train`` in this process (so that
+    the kernels' counts can be read): `steps` steps from scratch; then, with
+    resume_steps, the same command with max_steps=resume_steps in a new
+    process (``python -m fewshot_torch.cli``), which must restore the
+    checkpoint at `steps` and finish.  exact: {wrapper: launches a step}
+    that the run must show exactly (backward kernels; the forwards also
+    run in evaluation).  The loss must fall and val NLL be logged every
+    eval_interval steps; the parameters that the checkpoint restores are
+    bit-identical to those saved at `steps`."""
+    from fewshot_torch import cli, training
+    from fewshot_torch.config import load_config, parse_overrides
+    from fewshot_torch.utils import ckpt
+    args = cli_args(model_yaml, corpus_dir, ckpt_dir,
+                    [*sets, f"max_steps={steps}"])
+    cfg = load_config(DATA_YAML, model_yaml, TASK_YAML, parse_overrides(
+        args[args.index("--set") + 1:]))
+    saved = {}
+    save = cli.save_checkpoint
+
+    def record(d, state, *a, **k):       # what each save was handed
+        saved[int(state.step)] = {n: p.detach().clone() for n, p
+                                  in state.params.named_parameters()}
+        return save(d, state, *a, **k)
+    kernel_counters = reset_counts()
+    cli.save_checkpoint = record
+    t0 = time.perf_counter()
+    try:
+        cli.main(args)
+        torch.cuda.synchronize()
+    finally:
+        cli.save_checkpoint = save
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in kernel_counters.items()}
+    routes = route_counts(kernel_counters, persistent, label)
+    for n, per in exact.items():
+        if launches[n] != per * steps:
+            raise RuntimeError(f"{label}: {n} launched {launches[n]} times "
+                               f"in {steps} steps, not {per} a step")
+    for n in ("lstm_stack_fwd", "head_ce_fwd", "prefix_attn_fwd"):
+        bwd = n.replace("_fwd", "_bwd") if n != "prefix_attn_fwd" \
+            else "prefix_attn_bwd_dq"
+        if bwd in exact and launches[n] < exact[bwd] * steps:
+            raise RuntimeError(f"{label}: {n} launched {launches[n]} times")
+    vocab_hash = corpus.vocab.content_hash()
+    init = training.init_train_state(cfg, len(corpus.vocab), device=dev)
+    state, restored = ckpt.recover_or_init(ckpt_dir, init, vocab_hash,
+                                           ckpt.hparams_of(cfg))
+    bits = restored and state.step == steps and all(
+        torch.equal(p, saved[steps][n])
+        for n, p in state.params.named_parameters())
+    if not bits:
+        raise RuntimeError(f"{label}: the checkpoint at {steps} does not "
+                           f"restore the saved parameters bit for bit")
+    rec = {"phase": label, "steps": steps, "wall_s": wall,
+           "launches": launches, "route_launches": routes,
+           "launches_per_step": {n: launches[n] / steps for n in launches},
+           "restored_bit_identical": bits}
+    if resume_steps:
+        cmd = [sys.executable, "-m", "fewshot_torch.cli",
+               *cli_args(model_yaml, corpus_dir, ckpt_dir,
+                         [*sets, f"max_steps={resume_steps}"])]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=900)
+        rec["resume_wall_s"] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise RuntimeError(f"{label}: the resumed run failed:\n"
+                               f"{proc.stderr[-3000:]}")
+        if f"restored checkpoint at step {steps}" not in proc.stdout:
+            raise RuntimeError(f"{label}: the resumed run did not restore "
+                               f"step {steps}:\n{proc.stdout[-2000:]}")
+        state, _ = ckpt.recover_or_init(ckpt_dir, init, vocab_hash)
+        if state.step != resume_steps:
+            raise RuntimeError(f"{label}: resumed run ended at {state.step}")
+    losses, vals = leg_metrics(ckpt_dir)
+    last = resume_steps or steps
+    want_vals = list(range(cfg.eval_interval, last + 1, cfg.eval_interval))
+    if [r["step"] for r in vals] != want_vals or \
+            [r["step"] for r in losses][-1] != last:
+        raise RuntimeError(f"{label}: logged steps {[r['step'] for r in vals]}"
+                           f" (val), {[r['step'] for r in losses][-3:]}")
+    first, final = losses[0]["loss"], losses[-1]["loss"]
+    if not (np.isfinite(final) and final < first):
+        raise RuntimeError(f"{label}: loss did not fall: {first} -> {final}")
+    rec.update(cfg=cfg, params=state.params, loss_first=first,
+               loss_last=final, val_nll=[(r["step"], r["val_nll"])
+                                         for r in vals],
+               episodes_per_sec=[r["episodes_per_sec"] for r in losses])
+    log(f"{label}: {json.dumps({k: v for k, v in rec.items() if k not in ('cfg', 'params', 'episodes_per_sec')})}")
+    return rec
+
+
+def leg_floor(label, leg, corpus, dev) -> dict:
+    """The trained model's val NLL (LEG_EVAL_EPISODES episodes) beside the
+    episodic-unigram floor on the same split."""
+    from fewshot_torch.data import episodes as eps
+    from fewshot_torch.models import unigram
+    cfg = leg["cfg"]
+    data = eps.put_corpus(corpus, dev)
+    ev = eval_phase(label, cfg, leg["params"], data, corpus, dev)
+    val = torch.as_tensor(np.asarray(corpus.splits["val"]),
+                          dtype=torch.int64, device=dev)
+    floor = unigram.evaluate_unigram(
+        cfg, corpus, data, val, torch.Generator(device=dev).manual_seed(7),
+        num_episodes=EVAL_EPISODES)
+    log(f"{label}: final val NLL {ev['nll']:.6f} (unigram floor "
+        f"{floor:.6f})")
+    return {"val_nll": ev["nll"], "unigram_floor": floor}
+
+
+def cache_decode_check(label, cfg, params, corpus, dev) -> dict:
+    """The served decode loop with the cache head on one batch: the first
+    step's mixed log-probs against the plain route (MIXED_TOL absolute),
+    every step's rows normalised (logsumexp within LSE_TOL of 0), and each
+    row's carried counts those of the non-PAD tokens it emitted."""
+    from fewshot_torch import sampling
+    from fewshot_torch.data import episodes as eps
+    from fewshot_torch.data.vocab import PAD
+    b, vocab = cfg.batch_size, len(corpus.vocab)
+    data = eps.put_corpus(corpus, dev)
+    ep = eps.sample_episode_for_artists(
+        [sampling.row_generator(s, 0) for s in range(b)], data,
+        torch.as_tensor(np.resize(corpus.splits["train"], b)),
+        k=cfg.support_size, q=cfg.query_size)
+    sample, count = sampling.filtered_sample, sampling._count_emitted
+
+    def run(c):
+        seen, carried = [], []
+
+        def watch_sample(noise, logits, *a, **k):
+            seen.append(logits.float())
+            return sample(noise, logits, *a, **k)
+
+        def watch_count(c_pre, n_pre, nxt):
+            carried[:] = [count(c_pre, n_pre, nxt)]
+            return carried[0]
+        sampling.filtered_sample, sampling._count_emitted = \
+            watch_sample, watch_count
+        try:
+            toks = sampling.generate(
+                params, ep.support, ep.support_len,
+                [sampling.row_generator(s, 1, dev) for s in range(b)], c)
+        finally:
+            sampling.filtered_sample, sampling._count_emitted = sample, count
+        return toks, seen, carried
+    toks, seen, carried = run(cfg)
+    _, plain_seen, _ = run(plain_route(cfg))
+    first_err = float((seen[0] - plain_seen[0]).abs().max())
+    lse_err = max(float(torch.logsumexp(x, -1).abs().max()) for x in seen)
+    emitted = toks != PAD
+    counts_ok = True
+    if cfg.cache_dynamic:
+        c_pre, n_pre = carried[0]
+        want = torch.zeros((b, vocab), device=dev).scatter_add_(
+            1, toks.clamp(0, vocab - 1), emitted.float())
+        counts_ok = (torch.equal(n_pre[:, 0], emitted.sum(1).float())
+                     and torch.equal(c_pre, want))
+    rec = {"first_step_mixed_err_vs_plain": first_err,
+           "max_abs_logsumexp": lse_err, "carried_counts_ok": counts_ok,
+           "steps": len(seen)}
+    log(f"  {label} cache head: {rec}")
+    if not (first_err <= MIXED_TOL and lse_err <= LSE_TOL and counts_ok):
+        raise RuntimeError(f"{label}: the cache head's decode is off: {rec}")
+    return rec
+
+
 # the kernels whose bf16 route runs on tensor cores, by wrapper: (library,
 # the CUDA kernel's name in it)
 TENSOR_CORE = {"lstm_layer_fwd": ("lstm_fwd", "lstm_fwd_persist_kernel"),
@@ -1512,6 +1825,13 @@ def build_all() -> dict:
         log(f"  ptxas {kernel}: {sorted(v for v in regs.values()) or 'not read'}")
         if any(v[1] or v[2] for v in regs.values()):
             raise RuntimeError(f"{kernel} spills registers: {regs}")
+    # every other instance too: the SIMT step kernels of 1-4 and the v1
+    # attention kernels, fp32 and (heads past 128) bf16
+    for lib in _ext.SIGNATURES:
+        spills = {fn: v for fn, v in ptxas_report(
+            _ext.build_log.get(lib, "")).items() if v[1] or v[2]}
+        if spills:
+            raise RuntimeError(f"{lib}: kernels spill registers: {spills}")
     return hmma
 
 
@@ -1569,10 +1889,12 @@ def main() -> int:
 
     # the V=5000 path, after the bench-corpus phases: its 100,000-song
     # corpus build and the head+CE phase do not precede their host timings
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        scale = scale_corpus(Path(tmp))
-        scale_s = time.perf_counter() - t0
+    # the V=5000 corpus stays on disk for the train CLI's legs below
+    scale_tmp = tempfile.TemporaryDirectory()
+    tmp = Path(scale_tmp.name)
+    t0 = time.perf_counter()
+    scale = scale_corpus(tmp)
+    scale_s = time.perf_counter() - t0
     log(f"scale corpus: {scale.songs.shape[0]} songs, max_len "
         f"{scale.max_len}, vocab {len(scale.vocab)}, built in {scale_s:.1f} s")
     # training C's head: B*Q query songs of max_len - 1 positions
@@ -1619,6 +1941,59 @@ def main() -> int:
                                          num_layers=4, num_heads=2),
         corpus, dev, "prefix_attn_fwd")
     flash = flash_phase(dev)
+
+    # the width repairs: kernels 1-2 past their former limits, kernels 7-9
+    # at head widths 24, 192, 256 (E = 2 hd) at the query stream's shape
+    log("kernels 1-2 at wide hidden sizes (step route, train mode):")
+    records.update(wide_lstm_phase(dev))
+    for hd in WIDE_HD:
+        log(f"prefix-attention kernels at hd = {hd}:")
+        records.update(attn_kernel_phase(
+            dev, {f"hd{hd}": attn_shapes["query"]}, hd=hd, seed=hd))
+
+    # the flagship cache recipe (configs/task/episodic_cache.yaml) through
+    # the train CLI: the shipped LSTM 1000 steps, then resumed in a new
+    # process to the recipe's 2000; the shipped transformer 200 steps
+    # (cell=pallas, as scripts/scale_quality.py:58 sets for every leg);
+    # each served from its checkpoint with the dynamic cache head
+    corpus_dir = tmp / "scale_lyrics"
+    sets = [f"max_len={scale.max_len}"]
+    lstm_leg = cli_leg(
+        "cli_lstm_leg", LSTM_YAML, scale, corpus_dir, tmp / "ck_lstm", sets,
+        1000, exact={"lstm_stack_bwd": 2, "head_ce_bwd": 1}, dev=dev,
+        persistent=stack_pair, resume_steps=2000)
+    lstm_leg.update(leg_floor("cli_lstm_leg", lstm_leg, scale, dev))
+    serve_lstm = serving_phase(
+        "serving_cli_lstm", lstm_leg["cfg"], scale, dev, "lstm_stack_fwd",
+        persistent=("lstm_stack_fwd",), params=lstm_leg["params"])
+    serve_lstm["cache_head"] = cache_decode_check(
+        "serving_cli_lstm", lstm_leg["cfg"], lstm_leg["params"], scale, dev)
+    tfm_layers = 4                  # configs/model/transformer.yaml
+    tfm_leg = cli_leg(
+        "cli_transformer_leg", TFM_YAML, scale, corpus_dir, tmp / "ck_tfm",
+        sets + ["cell=pallas"], 200,
+        exact={"prefix_attn_bwd_dq": 2 * tfm_layers - 1,
+               "prefix_attn_bwd_dkv": 2 * tfm_layers - 1, "head_ce_bwd": 1},
+        dev=dev)
+    tfm_leg.update(leg_floor("cli_transformer_leg", tfm_leg, scale, dev))
+    serve_tfm = serving_phase(
+        "serving_cli_transformer", tfm_leg["cfg"], scale, dev,
+        "prefix_attn_fwd", params=tfm_leg["params"])
+    serve_tfm["cache_head"] = cache_decode_check(
+        "serving_cli_transformer", tfm_leg["cfg"], tfm_leg["params"], scale,
+        dev)
+    scale_tmp.cleanup()
+    legs = {}
+    for name, leg, srv in (("lstm", lstm_leg, serve_lstm),
+                           ("transformer", tfm_leg, serve_tfm)):
+        legs[name] = {
+            **{k: v for k, v in leg.items() if k not in ("cfg", "params")},
+            "serving": {k: srv[k] for k in (
+                "requests", "p50_latency_s", "max_latency_s",
+                "tokens_per_s", "generated_tokens", "batch_generate_ms",
+                "batch_device_busy_ms", "batch_device_idle_share",
+                "launches", "cache_head")}}
+        log(f"leg {name}: {json.dumps(legs[name])}")
 
     meta = {  # key, csrc source, TPU kernel, the slice's path, serving path
         "lstm_layer_fwd": ("layer", "lstm_fwd.cu",
@@ -1724,6 +2099,16 @@ def main() -> int:
             rec.update({k: v and q[k] for k, v in r.items()
                         if k.endswith("deterministic")})
             rec["oversize_launch_refused"] = q["oversize_launch_refused"]
+        if name in ("lstm_layer_fwd", "lstm_layer_bwd"):
+            suffix = "" if name.endswith("fwd") else "_bwd"
+            rec["wide_hidden"] = wide_records(
+                records, [f"layer_h{h}{suffix}" for _, h in WIDE_LSTM])
+        if name.startswith("prefix_attn"):
+            rec["head_widths"] = wide_records(
+                records, [f"{key.split('_')[0]}_{key.split('_')[1]}_hd{hd}"
+                          for hd in WIDE_HD])
+        rec["launches_cli_legs"] = {
+            leg: legs[leg]["launches"][name] for leg in legs}
         if serve is not None:
             rec["launches_serving"] = serve["launches"][name]
             rec["launches_per_serving_batch"] = \

@@ -2,13 +2,15 @@
 
 Port of ``fewshot/config.py``.  The dataclass, its validation and the
 ``--data/--model/--task/--set`` surface are the same, so one set of YAML
-files drives both packages.  PyYAML is imported only inside the loaders: a
-caller that builds a :class:`Config` directly needs no YAML at all.
+files drives both packages.  The config files are flat mappings of plain
+scalars, which the port reads itself (``_load_yaml``): the card machine
+has no PyYAML.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 from pathlib import Path
 from typing import Any
 
@@ -152,14 +154,49 @@ class Config:
 _FIELDS = {f.name for f in dataclasses.fields(Config)}
 
 
+_YAML_FLOAT = re.compile(
+    r"^[-+]?(?:[0-9][0-9_]*)?\.[0-9_]*(?:[eE][-+][0-9]+)?$")
+_YAML_INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
+_YAML_BOOL = {"true": True, "yes": True, "on": True,
+              "false": False, "no": False, "off": False}
+
+
+def _scalar(text: str) -> Any:
+    """One plain YAML 1.1 scalar as PyYAML's safe_load reads it: null,
+    bool, a decimal int, a float (with a dot, or .inf/.nan), a quoted or a
+    plain string."""
+    t = text.strip()
+    if t in ("", "~") or t.lower() == "null":
+        return None
+    if t.lower() in _YAML_BOOL and t in (t.lower(), t.upper(),
+                                         t.capitalize()):
+        return _YAML_BOOL[t.lower()]
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    if _YAML_INT.match(t):
+        return int(t.replace("_", ""))
+    if _YAML_FLOAT.match(t) and any(c.isdigit() for c in t):
+        return float(t.replace("_", ""))
+    if t.lower() in (".inf", "+.inf", "-.inf", ".nan"):
+        return float(t.replace(".", "", 1))
+    return t
+
+
 def _load_yaml(path: str | Path) -> dict[str, Any]:
-    import yaml
-    with open(path) as f:
-        doc = yaml.safe_load(f)
-    if doc is None:
-        return {}
-    if not isinstance(doc, dict):
-        raise ValueError(f"config file {path} must be a YAML mapping")
+    """A config file: a flat YAML mapping of plain scalars (every shipped
+    config), read without PyYAML, which the card machine lacks.  Comments
+    and blank lines are skipped; anything nested is refused."""
+    doc: dict[str, Any] = {}
+    for n, raw in enumerate(Path(path).read_text().splitlines(), 1):
+        line = re.sub(r"(^|\s)#.*$", "", raw).rstrip()
+        if not line or line == "---":
+            continue
+        key, sep, value = line.partition(":")
+        if line[0].isspace() or not sep or not key.strip() \
+                or line.lstrip().startswith("- "):
+            raise ValueError(f"config file {path}:{n}: only a flat mapping "
+                             f"of scalars is read, got {raw!r}")
+        doc[key.strip()] = _scalar(value)
     return doc
 
 
@@ -194,7 +231,8 @@ def add_config_flags(parser) -> None:
     parser.add_argument("--task", type=str, default=None,
                         help="task YAML config")
     parser.add_argument("--checkpt_dir", type=str, default=None,
-                        help="directory holding params.npz")
+                        help="checkpoint directory (one subdirectory per "
+                             "saved step, or a bare params.npz)")
     parser.add_argument("--set", nargs="*", default=[], metavar="K=V",
                         help="inline overrides, e.g. --set lr=3e-4 seed=1")
 
@@ -206,13 +244,12 @@ def parse_overrides(pairs: list[str]) -> dict[str, Any]:
             raise ValueError(f"--set expects K=V, got {pair!r}")
         k, v = pair.split("=", 1)
         # YAML 1.1 won't parse "3e-4" as a float (needs a dot): try plain
-        # numeric coercion first, then YAML for bool/str/etc.
+        # numeric coercion first, then a YAML scalar for bool/str/etc.
         try:
             out[k] = int(v)
         except ValueError:
             try:
                 out[k] = float(v)
             except ValueError:
-                import yaml
-                out[k] = yaml.safe_load(v)
+                out[k] = _scalar(v)
     return out

@@ -124,6 +124,45 @@ class PackedCorpus:
         }
 
 
+def support_coverage_estimate(corpus: PackedCorpus, k: int,
+                              split: str = "train", n_episodes: int = 256,
+                              seed: int = 0) -> float:
+    """Monte-Carlo estimate of the fraction of query target tokens that
+    appear in the episode's K support songs (``fewshot/data/corpus.py``
+    support_coverage_estimate, the same draws).
+
+    Near 1 the K-shot count posterior is already near-optimal at init: the
+    cache head's gate routes to it and the LM branch's gradient starves, so
+    the train CLI keys its warning on this.  Episodes are drawn as the
+    device sampler draws them (an artist, then K+1 distinct songs where it
+    has them).  Host numpy."""
+    rng = np.random.default_rng(seed)
+    artists = corpus.splits.get(split)
+    if artists is None or len(artists) == 0:
+        return 0.0
+    # support + query need 2 songs; an artist with fewer than K+1 reuses
+    # songs in the sampler, which only raises coverage
+    artists = [a for a in np.asarray(artists)
+               if corpus.artist_num_songs[a] >= 2]
+    if not artists:
+        return 0.0
+    covered = total = 0
+    for _ in range(n_episodes):
+        a = artists[rng.integers(len(artists))]
+        n = int(corpus.artist_num_songs[a])
+        ids = corpus.artist_song_ids[a, :n]
+        pick = rng.choice(n, size=min(k + 1, n), replace=False)
+        sup, q = ids[pick[:-1]], ids[pick[-1]]
+        sup_tokens = np.unique(corpus.songs[sup][
+            np.arange(corpus.max_len) < corpus.song_len[sup][:, None]])
+        # targets are positions 1..len-1 (BOS is never a target)
+        qlen = int(corpus.song_len[q])
+        q_targets = corpus.songs[q, 1:qlen]
+        covered += int(np.isin(q_targets, sup_tokens).sum())
+        total += q_targets.size
+    return covered / max(total, 1)
+
+
 def make_splits(num_artists: int, seed: int = 0,
                 fracs: dict[str, float] = SPLIT_FRACS) -> dict[str, np.ndarray]:
     """Deterministic artist-level split.

@@ -18,8 +18,8 @@ JAX code runs at the compute dtype with fp32 accumulation goes through
 grad of a rounded operand is rounded to the compute dtype, as JAX's dot
 transpose does); ``stop_gradient`` is ``detach``.  The finetune variant,
 dropout in training and the transformer's ``remat`` are later slices of the
-port and raise ``NotImplementedError``; so does sampling with the cache head
-(``sampling.check_servable``).
+port and raise ``NotImplementedError``.  ``cache_mixed_logp`` is the cache
+head's mixture over the vocabulary, which sampling draws from.
 """
 
 from __future__ import annotations
@@ -392,6 +392,19 @@ def lm_target_logp(logits: torch.Tensor, targets: torch.Tensor
         return torch.log_softmax(logits, dim=-1).gather(-1, idx)[..., 0]
     return (logits.gather(-1, idx)[..., 0]
             - torch.logsumexp(logits, dim=-1))
+
+
+def cache_mixed_logp(params: LM, logits: torch.Tensor, hidden: torch.Tensor,
+                     log_cache: torch.Tensor) -> torch.Tensor:
+    """Mixture log-probs [.., V]: (1-g) p_lm + g p_cache with the
+    per-position gate g = sigmoid(hidden . w + b).  A normalized
+    log-distribution: sampling's temperature and top-k act on it as on
+    logits (``fewshot/models/lm.py`` cache_mixed_logp)."""
+    gate = params.cache_gate
+    z = hidden.float() @ gate.w + gate.b
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return torch.logaddexp(logp + F.logsigmoid(-z)[..., None],
+                           log_cache + F.logsigmoid(z)[..., None])
 
 
 def cache_token_nll(params: LM, logits, hidden, log_cache, targets, mask,

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signature of every exported function: argument types, int result
 SIGNATURES = {
     "lstm_fwd": {
@@ -58,9 +59,9 @@ SIGNATURES = {
         "head_ce_bwd": [_P] * 10 + [_I] * 5 + [_P],
     },
     "prefix_attn": {
-        "prefix_attn_fwd": [_P] * 9 + [_I] * 7 + [_P],
-        "prefix_attn_bwd_dq": [_P] * 11 + [_I] * 7 + [_P],
-        "prefix_attn_bwd_dkv": [_P] * 14 + [_I] * 7 + [_P],
+        "prefix_attn_fwd": [_P] * 9 + [_I] * 6 + [_F, _I, _P],
+        "prefix_attn_bwd_dq": [_P] * 11 + [_I] * 6 + [_F, _I, _P],
+        "prefix_attn_bwd_dkv": [_P] * 14 + [_I] * 6 + [_F, _I, _P],
     },
 }
 

@@ -32,10 +32,11 @@
 // whole dz_{t+1} [rows, 4H] row contracted with Wh^T.  As in the forward
 // (lstm_fwd.cu), one launch runs one step (and one layer), and the launch
 // boundary is the grid barrier.  A block owns ROWS rows and UNITS hidden
-// units: it stages its rows of dz_{t+1} (4H wide) and its units' Wh rows in
-// shared memory with 16-byte cp.async copies, forms dh for its units (the
-// contraction split over KSPLIT thread groups, fp32 SIMT), then the four
-// gate deltas of its units, written to dzx[t].  The carried fp32 dh and dc
+// units: it walks the 4H columns of its rows of dz_{t+1} and of its units'
+// Wh rows in chunks (256 or 1024) through a two-slot cp.async ring (so its shared
+// memory is the same at every H, and any H % 32 == 0 runs), forms dh for
+// its units (the contraction split over KSPLIT thread groups, fp32 SIMT),
+// then the four gate deltas of its units, written to dzx[t].  The carried fp32 dh and dc
 // live in device memory.  A last launch per layer contracts dz_0 for dh0.
 // At 160 rows x 96 steps, H=512, a step costs ~56 us, ~1 us of it the
 // launch: the per-step L2 reads and the SIMT products bound it.
@@ -73,9 +74,10 @@
 
 namespace {
 
-// shared memory a block may use; ops/lstm_layer.py max_hidden_bwd mirrors it
+// shared memory a block may use
 constexpr int kMaxSmem = 227 * 1024;
-constexpr int kPadBytes = 16;       // padding per staged 4H row
+constexpr int kPadBytes = 16;       // padding per staged row
+constexpr int kStages = 2;          // chunks in flight
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -104,16 +106,6 @@ __device__ __forceinline__ float gate_in<int8_t>(int8_t v, bool sig) {
   return sig ? __fmul_rn(__fadd_rn(g, 1.0f), 0.5f) : g;
 }
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
 // a . w over one 16-byte piece of each, into two partial sums
 __device__ __forceinline__ void dot16(const uint4& a, const uint4& w,
                                       float& s0, float& s1, float) {
@@ -140,66 +132,74 @@ __device__ __forceinline__ void dot16(const uint4& a, const uint4& w,
 
 // Tile of a block: ROWS rows x UNITS hidden units, the 4H-deep contraction
 // split over KSPLIT thread groups.  Each thread owns one unit, two rows (rp
-// and rp + ROWS / 2) and one contraction slice.
+// and rp + ROWS / 2) and one contraction slice of every chunk.  A ring slot
+// holds one chunk: kChunk columns of the 4H contraction for the block's
+// ROWS operand rows and UNITS weight rows, so shared memory does not grow
+// with H.
 template <typename T, int ROWS, int UNITS, int KSPLIT>
 struct BwdTile {
   static constexpr int kThreads = (ROWS / 2) * UNITS * KSPLIT;
-  __host__ __device__ static size_t stride(int hidden) {  // per staged row
-    return 4 * (size_t)hidden + kPadBytes / sizeof(T);
+  // narrow tiles (one block an SM) stage 1024 columns at once, wide ones
+  // 256, which lets three blocks share an SM
+  static constexpr int kChunk = ROWS <= 16 ? 1024 : 256;
+  static constexpr int kStride = kChunk + kPadBytes / (int)sizeof(T);
+  __host__ __device__ static constexpr size_t slot_bytes() {
+    return (size_t)(ROWS + UNITS) * kStride * sizeof(T);
   }
-  static size_t smem_bytes(int hidden) {
-    const size_t stage = (size_t)(ROWS + UNITS) * stride(hidden) * sizeof(T);
+  static constexpr size_t smem_bytes() {
+    const size_t ring = kStages * slot_bytes();
     const size_t reduce = ((size_t)KSPLIT * ROWS * UNITS * 2 +
                            (size_t)ROWS * UNITS * 4) * sizeof(float);
-    return stage > reduce ? stage : reduce;
+    return ring > reduce ? ring : reduce;
   }
 };
 
-// Stage rows [row0, row0 + ROWS) of a [rows, 4H] operand and rows
-// [u0, u0 + UNITS) of a weight [H, 4H]; operand rows past `rows` read as 0.
+// Stage columns [k0, k0 + kc) of rows [row0, row0 + ROWS) of a [rows, 4H]
+// operand (rows past `rows` zero-filled) and of rows [u0, u0 + UNITS) of a
+// weight [H, 4H] into one ring slot by cp.async (the caller commits).
 template <typename T, int ROWS, int UNITS, int THREADS>
-__device__ __forceinline__ void stage(const T* __restrict__ dz,
-                                      const T* __restrict__ w, int rows,
-                                      int hidden, size_t stride, int row0,
-                                      int u0, T* dzs, T* ws) {
+__device__ __forceinline__ void stage_chunk(const T* __restrict__ dz,
+                                            const T* __restrict__ w, int rows,
+                                            int hidden, int row0, int u0,
+                                            int k0, int kc, T* slot) {
+  constexpr int kStride = BwdTile<T, ROWS, UNITS, 1>::kStride;
   const int tid = threadIdx.x;
-  const int pieces = 4 * hidden * (int)sizeof(T) / 16;   // per 4H row
+  const int pieces = kc * (int)sizeof(T) / 16;   // per staged row
+  const size_t four_h = 4 * (size_t)hidden;
   // unrolled explicitly: left to nvcc, the unroll moved with unrelated code
   // in this file, and kernel 4's time with it
 #pragma unroll 4
   for (int e = tid; e < (ROWS + UNITS) * pieces; e += THREADS) {
     const int r = e / pieces, p = e % pieces;
+    char* dst = reinterpret_cast<char*>(slot + (size_t)r * kStride) + 16 * p;
     if (r < ROWS) {
-      char* dst = reinterpret_cast<char*>(dzs + (size_t)r * stride) + 16 * p;
       const int row = row0 + r;
-      if (row < rows) {
-        cp_async16(dst, reinterpret_cast<const char*>(
-                            dz + (size_t)row * 4 * hidden) + 16 * p);
-      } else {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
-      }
+      const bool ok = row < rows;
+      mma::cp_async16(dst,
+                      reinterpret_cast<const char*>(
+                          dz + (size_t)(ok ? row : 0) * four_h + k0) +
+                          16 * p,
+                      ok ? 16 : 0);
     } else {
-      const int k = r - ROWS;
-      char* dst = reinterpret_cast<char*>(ws + (size_t)k * stride) + 16 * p;
-      cp_async16(dst, reinterpret_cast<const char*>(
-                          w + (size_t)(u0 + k) * 4 * hidden) + 16 * p);
+      mma::cp_async16(dst, reinterpret_cast<const char*>(
+                               w + (size_t)(u0 + r - ROWS) * four_h + k0) +
+                               16 * p);
     }
   }
-  cp_async_wait_all();
-  __syncthreads();
 }
 
-// acc[i] += sum over this thread's slice of the 4H columns of
+// acc[i] += sum over this thread's slice of the chunk's kc columns of
 // dz[row_i, k] * w[unit, k]
 template <typename T, int ROWS, int UNITS, int KSPLIT>
-__device__ __forceinline__ void contract(const T* dzs, const T* ws,
-                                         int hidden, size_t stride, int j,
-                                         int rp, int ks, float (&acc)[2]) {
-  const int per = 4 * hidden * (int)sizeof(T) / 16 / KSPLIT;
-  const uint4* a0 = reinterpret_cast<const uint4*>(dzs + (size_t)rp * stride);
+__device__ __forceinline__ void contract(const T* slot, int kc, int j, int rp,
+                                         int ks, float (&acc)[2]) {
+  constexpr int kStride = BwdTile<T, ROWS, UNITS, KSPLIT>::kStride;
+  const int per = kc * (int)sizeof(T) / 16 / KSPLIT;
+  const uint4* a0 = reinterpret_cast<const uint4*>(slot + (size_t)rp * kStride);
   const uint4* a1 =
-      reinterpret_cast<const uint4*>(dzs + (size_t)(rp + ROWS / 2) * stride);
-  const uint4* w = reinterpret_cast<const uint4*>(ws + (size_t)j * stride);
+      reinterpret_cast<const uint4*>(slot + (size_t)(rp + ROWS / 2) * kStride);
+  const uint4* w =
+      reinterpret_cast<const uint4*>(slot + (size_t)(ROWS + j) * kStride);
   float s[2][2] = {};
 #pragma unroll 4
   for (int v = ks * per; v < (ks + 1) * per; ++v) {
@@ -239,9 +239,6 @@ __global__ void __launch_bounds__(BwdTile<T, ROWS, UNITS, KSPLIT>::kThreads)
   constexpr int kThreads = Tile::kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
   const int hidden = a.hidden;
-  const size_t stride = Tile::stride(hidden);
-  T* dzs = reinterpret_cast<T*>(smem);
-  T* ws = dzs + (size_t)ROWS * stride;
   const int u0 = blockIdx.x * UNITS;
   const int row0 = blockIdx.y * ROWS;
   const int tid = threadIdx.x;
@@ -249,30 +246,58 @@ __global__ void __launch_bounds__(BwdTile<T, ROWS, UNITS, KSPLIT>::kThreads)
   const int rp = (tid / UNITS) % (ROWS / 2);
   const int ks = tid / (UNITS * (ROWS / 2));
 
-  // acc[0]: the layer above's dz . Wx^T; acc[1]: this layer's dz_{t+1} . Wh^T
+  // acc[0]: the layer above's dz . Wx^T; acc[1]: this layer's dz_{t+1} . Wh^T.
+  // The 4H-deep contractions run as one walk over kChunk-column chunks
+  // through a kStages-slot cp.async ring: chunks [0, n_up) of dz_up . Wx^T,
+  // then those of dz_next . Wh^T.
   float acc[2][2] = {};
   const T* dz_up = static_cast<const T*>(a.dz_up);
   const T* dz_next = static_cast<const T*>(a.dz_next);
-  if (dz_up != nullptr) {
-    stage<T, ROWS, UNITS, kThreads>(dz_up, static_cast<const T*>(a.wx_up),
-                                    a.rows, hidden, stride, row0, u0, dzs,
-                                    ws);
-    contract<T, ROWS, UNITS, KSPLIT>(dzs, ws, hidden, stride, j, rp, ks,
-                                     acc[0]);
-    __syncthreads();  // the next stage overwrites dzs/ws
-  }
-  if (dz_next != nullptr) {
-    stage<T, ROWS, UNITS, kThreads>(dz_next, static_cast<const T*>(a.wh),
-                                    a.rows, hidden, stride, row0, u0, dzs,
-                                    ws);
-    contract<T, ROWS, UNITS, KSPLIT>(dzs, ws, hidden, stride, j, rp, ks,
-                                     acc[1]);
+  constexpr int kChunk = Tile::kChunk;
+  const int per = (4 * hidden + kChunk - 1) / kChunk;
+  const int n_up = dz_up != nullptr ? per : 0;
+  const int n_all = n_up + (dz_next != nullptr ? per : 0);
+  auto slot = [&](int ch) {
+    return reinterpret_cast<T*>(smem + (ch % kStages) * Tile::slot_bytes());
+  };
+  auto k_first = [&](int ch) { return (ch < n_up ? ch : ch - n_up) * kChunk; };
+  auto width = [&](int ch) {
+    const int k0 = k_first(ch);
+    return 4 * hidden - k0 < kChunk ? 4 * hidden - k0 : kChunk;
+  };
+  auto issue = [&](int ch) {
+    const bool up = ch < n_up;
+    stage_chunk<T, ROWS, UNITS, kThreads>(
+        up ? dz_up : dz_next,
+        static_cast<const T*>(up ? a.wx_up : a.wh), a.rows, hidden, row0, u0,
+        k_first(ch), width(ch), slot(ch));
+    mma::cp_async_commit();
+  };
+  if (n_all > 0) issue(0);
+#pragma unroll 1
+  for (int ch = 0; ch < n_all; ++ch) {
+    if (ch + 1 < n_all) {
+      issue(ch + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk ch landed
+    float part[2] = {};
+    contract<T, ROWS, UNITS, KSPLIT>(slot(ch), width(ch), j, rp, ks, part);
+    if (ch < n_up) {            // static indices: acc stays in registers
+      acc[0][0] += part[0];
+      acc[0][1] += part[1];
+    } else {
+      acc[1][0] += part[0];
+      acc[1][1] += part[1];
+    }
+    __syncthreads();  // its slot is free for chunk ch + kStages
   }
 
   float* red = reinterpret_cast<float*>(smem);
   float* dbred = red + (size_t)KSPLIT * ROWS * UNITS * 2;
   if (KSPLIT > 1) {  // sum the contraction slices in slice order
-    __syncthreads();
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = rp + i * (ROWS / 2);
@@ -366,8 +391,8 @@ struct BwdLauncher {
   using Tile = BwdTile<T, ROWS, UNITS, KSPLIT>;
   size_t smem = 0;
 
-  cudaError_t prepare(int hidden) {
-    smem = Tile::smem_bytes(hidden);
+  cudaError_t prepare(int) {
+    smem = Tile::smem_bytes();
     if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
     return cudaFuncSetAttribute(lstm_bwd_step_kernel<T, G, ROWS, UNITS, KSPLIT>,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -438,14 +463,10 @@ cudaError_t run_with(L& launcher, const void* gates_v, const void* wx_v,
 }
 
 // Tile shapes as in the forward: wide batches take 32-row tiles of 8 units;
-// batches of at most 16 rows (or hidden sizes whose wide tile does not fit)
-// take 16-row tiles of 4 units with the contraction split 8 ways.  The
+// batches of at most 16 rows take 16-row tiles of 4 units with the
+// contraction split 8 ways.  The
 // caller sizes db for 16-row blocks, the narrowest.
-template <typename T>
-bool use_wide(int rows, int hidden) {
-  return rows > 16 &&
-         BwdTile<T, 32, 8, 2>::smem_bytes(hidden) <= (size_t)kMaxSmem;
-}
+bool use_wide(int rows) { return rows > 16; }
 
 template <typename T, typename G>
 cudaError_t dispatch(const void* gates, const void* wx_rest, const void* wh,
@@ -453,7 +474,7 @@ cudaError_t dispatch(const void* gates, const void* wx_rest, const void* wh,
                      const void* dys, float* dh, float* dc, void* dzx,
                      float* db, int steps, int rows, int hidden, int layers,
                      cudaStream_t st) {
-  if (use_wide<T>(rows, hidden)) {
+  if (use_wide(rows)) {
     BwdLauncher<T, G, 32, 8, 2> l;
     return run_with<T, G>(l, gates, wx_rest, wh, mask, cs, c0, dys, dh, dc,
                           dzx, db, steps, rows, hidden, layers, st);

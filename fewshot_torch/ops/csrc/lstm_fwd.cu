@@ -31,13 +31,15 @@
 // cell update local to the block.  Blocks of one step share nothing, so a
 // step is one launch: the launch boundary is the grid-wide barrier between
 // steps.  h ping-pongs between two fp32 buffers in device memory; c is
-// updated in place (only its owning thread reads it).  A block stages the
-// whole contraction at once with cp.async, then each thread sums its
-// products in fp32 FMA.  Small batches (the state-mode support pass has 16
-// rows) use narrow unit tiles and split the contraction over KSPLIT thread
-// groups.  At 160 rows x 96 steps, H=512, a step costs ~39 us, of which
-// ~1 us is the launch (a CUDA graph of the 96 launches saves 0.11 of 3.85
-// ms): the per-step L2 reads of Wh and the SIMT products bound it.
+// updated in place (only its owning thread reads it).  A block walks the
+// contraction in chunks (128 or 512 rows) through a two-slot cp.async
+// ring (the next chunk's h rows and weight columns load while this one
+// multiplies), so its shared memory does not grow with H and any H % 32 ==
+// 0 runs; each thread sums its products in fp32 FMA.  Small batches (the
+// state-mode support pass has 16 rows) use narrow unit tiles and split the
+// contraction over KSPLIT thread groups.  The per-step L2 reads of Wh and
+// the SIMT products bound it (~35 us a step at 160 rows, H=512, ~1 us of
+// it the launch).
 //
 // The persistent kernel (lstm_fwd_persist_kernel, lstm_cluster.cuh).  Batch
 // rows never interact, only the hidden units of one row do, so a row tile
@@ -75,7 +77,8 @@
 namespace {
 
 constexpr int kPad = 4;             // floats of padding per staged h row
-// shared memory a block may use; ops/lstm_layer.py max_hidden mirrors it
+constexpr int kStages = 2;          // chunks in flight
+// shared memory a block may use
 constexpr int kMaxSmem = 227 * 1024;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -121,72 +124,81 @@ __device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
                "l"(gmem));
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::);
-}
-
 // Tile shape of a block: ROWS rows x UNITS hidden units (4 * UNITS gate
 // columns), the contraction split over KSPLIT thread groups.  Each thread
-// owns one unit, two rows (rp and rp + ROWS / 2) and one contraction slice.
+// owns one unit, two rows (rp and rp + ROWS / 2) and one contraction slice
+// of every chunk.  A ring slot holds one chunk: kChunk contraction rows of
+// the [ROWS, H] fp32 operand (pitched) and of the block's [H, 4 * UNITS]
+// weight columns, so shared memory does not grow with H.  Narrow tiles run
+// one block an SM (H / 4 of them at H <= 512), so they take 512-row chunks
+// and stage H <= 512 at once; wide tiles take 128 rows, which lets three
+// blocks share an SM.
 template <int ROWS, int UNITS, int KSPLIT>
 struct Tile {
   static constexpr int kThreads = (ROWS / 2) * UNITS * KSPLIT;
+  static constexpr int kChunk = ROWS <= 16 ? 512 : 128;
+  static constexpr int kAPitch = kChunk + kPad;  // floats per staged row
+  __host__ __device__ static constexpr size_t a_bytes() {
+    return (size_t)ROWS * kAPitch * sizeof(float);
+  }
   template <typename W>
-  static size_t smem_bytes(int hidden) {
-    const size_t stage = (size_t)ROWS * (hidden + kPad) * sizeof(float) +
-                         (size_t)hidden * 4 * UNITS * sizeof(W);
+  __host__ __device__ static constexpr size_t slot_bytes() {
+    return a_bytes() + (size_t)kChunk * 4 * UNITS * sizeof(W);
+  }
+  template <typename W>
+  static constexpr size_t smem_bytes() {
+    const size_t ring = kStages * slot_bytes<W>();
     const size_t reduce = (size_t)KSPLIT * ROWS * UNITS * 4 * sizeof(float);
-    return stage > reduce ? stage : reduce;
+    return ring > reduce ? ring : reduce;
   }
 };
 
-// Stage a [ROWS, H] fp32 operand block and the block's [H, 4 * UNITS] weight
-// columns in shared memory; rows past `rows` read as 0.
+// Stage contraction rows [k0, k0 + kc) of a [rows, H] fp32 operand block
+// (rows past `rows` zero-filled) and of the block's [H, 4 * UNITS] weight
+// columns into one ring slot, by cp.async (the caller commits the group).
 template <typename W, int ROWS, int UNITS, int THREADS>
-__device__ __forceinline__ void stage(const float* __restrict__ a,
-                                      const W* __restrict__ w, int rows,
-                                      int hidden, int row0, int u0,
-                                      float* hs, W* ws) {
+__device__ __forceinline__ void stage_chunk(const float* __restrict__ a,
+                                            const W* __restrict__ w, int rows,
+                                            int hidden, int row0, int u0,
+                                            int k0, int kc, float* hs, W* ws) {
+  constexpr int kAPitch = Tile<ROWS, UNITS, 1>::kAPitch;
   const int tid = threadIdx.x;
-  const int pairs = hidden / 2;
-  for (int e = tid; e < ROWS * pairs; e += THREADS) {
-    const int r = e / pairs, c = e % pairs;
-    float* dst = hs + (size_t)r * (hidden + kPad) + 2 * c;
+  const int quads = kc / 4;                 // 16-byte pieces per row
+  for (int e = tid; e < ROWS * quads; e += THREADS) {
+    const int r = e / quads, c = e % quads;
     const int row = row0 + r;
-    if (row < rows) {
-      cp_async8(dst, a + (size_t)row * hidden + 2 * c);
-    } else {
-      dst[0] = 0.0f;
-      dst[1] = 0.0f;
-    }
+    const bool ok = row < rows;
+    mma::cp_async16(hs + (size_t)r * kAPitch + 4 * c,
+                    a + (size_t)(ok ? row : 0) * hidden + k0 + 4 * c,
+                    ok ? 16 : 0);
   }
   // per (k, gate): UNITS contiguous weights, moved in 8-byte pieces
   constexpr int kPieces = UNITS * (int)sizeof(W) / 8;
   const size_t four_h = 4 * (size_t)hidden;
-  for (int e = tid; e < hidden * 4 * kPieces; e += THREADS) {
+  for (int e = tid; e < kc * 4 * kPieces; e += THREADS) {
     const int k = e / (4 * kPieces), rem = e % (4 * kPieces);
     const int g = rem / kPieces, p = rem % kPieces;
-    const char* src = reinterpret_cast<const char*>(
-                          w + (size_t)k * four_h + (size_t)g * hidden + u0) +
-                      8 * p;
+    const char* src =
+        reinterpret_cast<const char*>(w + (size_t)(k0 + k) * four_h +
+                                      (size_t)g * hidden + u0) +
+        8 * p;
     char* dst = reinterpret_cast<char*>(ws + ((size_t)k * 4 + g) * UNITS) +
                 8 * p;
     cp_async8(dst, src);
   }
-  cp_async_wait_all();
-  __syncthreads();
 }
 
-// acc[i][g] += sum over this thread's k slice of round_W(a[row_i, k]) *
-// w[k, g * H + u]
+// acc[i][g] += sum over this thread's slice of the chunk's kc rows of
+// round_W(a[row_i, k]) * w[k, g * H + u]
 template <typename W, int ROWS, int UNITS, int KSPLIT>
-__device__ __forceinline__ void contract(const float* hs, const W* ws,
-                                         int hidden, int j, int rp, int ks,
+__device__ __forceinline__ void contract(const float* hs, const W* ws, int kc,
+                                         int j, int rp, int ks,
                                          float (&acc)[2][4]) {
-  const int kper = hidden / KSPLIT;
+  constexpr int kAPitch = Tile<ROWS, UNITS, KSPLIT>::kAPitch;
+  const int kper = kc / KSPLIT;
   const int kbeg = ks * kper;
-  const float* a0 = hs + (size_t)rp * (hidden + kPad);
-  const float* a1 = hs + (size_t)(rp + ROWS / 2) * (hidden + kPad);
+  const float* a0 = hs + (size_t)rp * kAPitch;
+  const float* a1 = hs + (size_t)(rp + ROWS / 2) * kAPitch;
 #pragma unroll 4
   for (int k = kbeg; k < kbeg + kper; ++k) {
     const float x0 = round_to<W>(a0[k]);
@@ -204,10 +216,16 @@ __device__ __forceinline__ void contract(const float* hs, const W* ws,
 // One time step of one layer.  zx [B, 4H] (layer 0) or x [B, H] with wx
 // [H, 4H] (in-kernel projection, layers >= 1); exactly one of the two is
 // given.  wh [H, 4H]; bias [4H]; mask [B]; h_prev/h_next/c [B, H] fp32;
-// ys/cs [B, H] in the stream dtype S; (optional) gates [B, 4H] in G.
+// ys/cs [B, H] in the stream dtype S; (optional) gates [B, 4H] in G.  The
+// contraction (x . Wx, then h . Wh) runs as a walk over kChunk-row chunks
+// through a kStages-slot cp.async ring: the next chunk loads while this
+// one multiplies, and any H that is a multiple of 32 fits.
+// (Three blocks an SM, the occupancy of the whole-row stage at H = 512:
+// with only the block size given, ptxas spilled the fp32 narrow tile to 64
+// registers to fit a fourth.)
 template <typename W, typename S, typename G, int ROWS, int UNITS,
           int KSPLIT>
-__global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads)
+__global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads, 3)
     lstm_step_kernel(const S* __restrict__ zx, const float* __restrict__ x,
                      const W* __restrict__ wx, const W* __restrict__ wh,
                      const float* __restrict__ bias,
@@ -216,11 +234,9 @@ __global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads)
                      float* __restrict__ h_next, float* __restrict__ c,
                      S* __restrict__ ys, S* __restrict__ cs,
                      G* __restrict__ gates, int rows, int hidden) {
-  constexpr int kThreads = Tile<ROWS, UNITS, KSPLIT>::kThreads;
+  using T = Tile<ROWS, UNITS, KSPLIT>;
+  constexpr int kThreads = T::kThreads;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* hs = reinterpret_cast<float*>(smem);
-  W* ws = reinterpret_cast<W*>(smem + (size_t)ROWS * (hidden + kPad) *
-                                          sizeof(float));
   const int u0 = blockIdx.x * UNITS;
   const int row0 = blockIdx.y * ROWS;
   const int tid = threadIdx.x;
@@ -228,19 +244,49 @@ __global__ void __launch_bounds__(Tile<ROWS, UNITS, KSPLIT>::kThreads)
   const int rp = (tid / UNITS) % (ROWS / 2);
   const int ks = tid / (UNITS * (ROWS / 2));
 
+  // chunks [0, n_x) contract x . Wx, the rest h_prev . Wh
+  constexpr int kChunk = T::kChunk;
+  const int per = (hidden + kChunk - 1) / kChunk;
+  const int n_x = x != nullptr ? per : 0, n_all = n_x + per;
+  auto slot_a = [&](int ch) {
+    return reinterpret_cast<float*>(smem + (ch % kStages) *
+                                               T::template slot_bytes<W>());
+  };
+  auto slot_w = [&](int ch) {
+    return reinterpret_cast<W*>(reinterpret_cast<unsigned char*>(slot_a(ch)) +
+                                T::a_bytes());
+  };
+  auto k_first = [&](int ch) { return (ch < n_x ? ch : ch - n_x) * kChunk; };
+  auto width = [&](int ch) {
+    const int k0 = k_first(ch);
+    return hidden - k0 < kChunk ? hidden - k0 : kChunk;
+  };
+  auto issue = [&](int ch) {
+    const bool from_x = ch < n_x;
+    stage_chunk<W, ROWS, UNITS, kThreads>(
+        from_x ? x : h_prev, from_x ? wx : wh, rows, hidden, row0, u0,
+        k_first(ch), width(ch), slot_a(ch), slot_w(ch));
+    mma::cp_async_commit();
+  };
+
   float acc[2][4] = {};
-  if (x != nullptr) {
-    stage<W, ROWS, UNITS, kThreads>(x, wx, rows, hidden, row0, u0, hs, ws);
-    contract<W, ROWS, UNITS, KSPLIT>(hs, ws, hidden, j, rp, ks, acc);
-    __syncthreads();  // the h stage below overwrites hs/ws
+  issue(0);
+#pragma unroll 1
+  for (int ch = 0; ch < n_all; ++ch) {
+    if (ch + 1 < n_all) {
+      issue(ch + 1);
+      mma::cp_async_wait<1>();
+    } else {
+      mma::cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk ch landed
+    contract<W, ROWS, UNITS, KSPLIT>(slot_a(ch), slot_w(ch), width(ch), j, rp,
+                                     ks, acc);
+    __syncthreads();  // its slot is free for chunk ch + kStages
   }
-  stage<W, ROWS, UNITS, kThreads>(h_prev, wh, rows, hidden, row0, u0, hs,
-                                  ws);
-  contract<W, ROWS, UNITS, KSPLIT>(hs, ws, hidden, j, rp, ks, acc);
 
   if (KSPLIT > 1) {  // sum the contraction slices in slice order
     float* red = reinterpret_cast<float*>(smem);
-    __syncthreads();
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int r = rp + i * (ROWS / 2);
@@ -310,8 +356,8 @@ struct StepLauncher {
   using T = Tile<ROWS, UNITS, KSPLIT>;
   size_t smem = 0;
 
-  cudaError_t prepare(int hidden) {
-    smem = T::template smem_bytes<W>(hidden);
+  cudaError_t prepare(int) {
+    smem = T::template smem_bytes<W>();
     if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
     return cudaFuncSetAttribute(
         lstm_step_kernel<W, S, G, ROWS, UNITS, KSPLIT>,
@@ -397,18 +443,14 @@ cudaError_t run_stack_with(L& launcher, const void* zx_v, const void* wx_v,
 }
 
 // Tile shapes: wide batches take 32-row tiles of 8 units; batches of at
-// most 16 rows (or hidden sizes whose wide tile does not fit in shared
-// memory) take 16-row tiles of 4 units with the contraction split 8 ways.
+// most 16 rows take 16-row tiles of 4 units with the contraction split 8
+// ways.
 template <typename W, typename G>
 using Wide = StepLauncher<W, W, G, 32, 8, 2>;
 template <typename W, typename G>
 using Narrow = StepLauncher<W, W, G, 16, 4, 8>;
 
-template <typename W>
-bool use_wide(int rows, int hidden) {
-  return rows > 16 &&
-         Tile<32, 8, 2>::smem_bytes<W>(hidden) <= (size_t)kMaxSmem;
-}
+bool use_wide(int rows) { return rows > 16; }
 
 bool shape_ok(int rows, int hidden) {
   return rows > 0 && hidden > 0 && hidden % 32 == 0;
@@ -419,7 +461,7 @@ cudaError_t layer_with(const void* zx, const void* wh, const float* bias,
                        const float* mask, float* h_buf, float* c, void* ys,
                        void* cs, void* gates, int steps, int rows, int hidden,
                        cudaStream_t st) {
-  if (use_wide<W>(rows, hidden)) {
+  if (use_wide(rows)) {
     Wide<W, G> l;
     return run_layer_with<W, W, G>(l, zx, wh, bias, mask, h_buf, c, ys, cs,
                                    gates, steps, rows, hidden, st);
@@ -434,7 +476,7 @@ cudaError_t stack_with(const void* zx, const void* wx_rest, const void* wh,
                        const float* bias, const float* mask, float* h_buf,
                        float* c, void* ys, void* cs, void* gates, int steps,
                        int rows, int hidden, int layers, cudaStream_t st) {
-  if (use_wide<W>(rows, hidden)) {
+  if (use_wide(rows)) {
     Wide<W, W> l;
     return run_stack_with<W, W>(l, zx, wx_rest, wh, bias, mask, h_buf, c,
                                 ys, cs, gates, steps, rows, hidden, layers,

@@ -102,7 +102,17 @@
 // Masked keys carry the finite -1e30, never -inf, and l == 0 -> 1 and
 // log(max(l, 1e-30)) guard the division and the log, so a row whose every
 // key is masked stays finite; keys past the end of a sequence (the partial
-// last tile) are excluded outright.  hd is a multiple of 16, at most 128.
+// last tile) are excluded outright.
+//
+// Head widths.  hd is a multiple of 16 here (ops/prefix_attention.py pads
+// any other head with zero columns, which change no score, and passes the
+// scale of the unpadded head).  The tensor-core kernels hold hd / 8 fp32
+// accumulator fragments a thread and stop at hd = 128.  A wider head, in
+// either dtype, runs the v1 kernels as column windows of at most 128
+// (blockIdx.z): each window owns its output columns and recomputes the
+// scores over the whole head, staging it 128 columns at a time, so shared
+// memory and registers do not grow with hd; bf16 there rounds p and ds at
+// the tensor-core kernels' points.  Scores are recomputed once per window.
 //
 // Bound.  At the training shape (S = 160 songs of T = 95 rows, P = 480, E =
 // 256, bf16) the forward reads ~39 MB (q, k, v, the prefix k, v) and writes
@@ -186,36 +196,55 @@ struct Smem {
   }
 };
 
-// Rows [row0, row0 + 64) x columns [col0, col0 + hd) of a row-major [n, ld]
-// matrix into dst (pitch elements per row), 16 bytes a thread at a time;
-// rows past n read as zero.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src, int n,
-                                           int ld, int row0, int col0, int hd,
-                                           float* dst, int pitch) {
-  constexpr int kVec = Smem::kVec;
-  const int per = hd / kVec;
+// x rounded to the stream dtype T, as fp32 (the identity for fp32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Rows [row0, row0 + 64) x columns [col0, col0 + width) of a row-major
+// [n, ld] matrix in the stream dtype T into dst as fp32 (pitch floats per
+// row), 16 bytes a thread at a time; rows past n read as zero.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int n,
+                                           int ld, int row0, int col0,
+                                           int width, float* dst, int pitch) {
+  constexpr int kVec = 16 / (int)sizeof(T);  // elements per 16 bytes
+  const int per = width / kVec;
   for (int e = threadIdx.x; e < kTile * per; e += kThreads) {
     const int r = e / per, c = (e % per) * kVec;
     const int row = row0 + r;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (row < n)
       val = *reinterpret_cast<const uint4*>(src + (size_t)row * ld + col0 + c);
-    *reinterpret_cast<uint4*>(dst + r * pitch + c) = val;
+    float* out = dst + r * pitch + c;
+    if (sizeof(T) == sizeof(float)) {
+      *reinterpret_cast<uint4*>(out) = val;
+    } else {
+      const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&val);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float2 lo = __bfloat1622float2(x[2 * i]);
+        const float2 hi = __bfloat1622float2(x[2 * i + 1]);
+        *reinterpret_cast<float4*>(out + 4 * i) =
+            make_float4(lo.x, lo.y, hi.x, hi.y);
+      }
+    }
   }
 }
 
-// acc[i][j] = sum over d < hd of A[ty + 16 i][d] B[tx + 16 j][d], fp32 sums
-// of the staged operands (both [64, hd] tiles with the same pitch).
+// acc[i][j] += sum over d < width of A[ty + 16 i][d] B[tx + 16 j][d], fp32
+// sums of the staged operands (both [64, width] tiles with the same pitch).
 __device__ __forceinline__ void dot_tile(const float* A, const float* B,
-                                         int pitch, int hd,
+                                         int pitch, int width,
                                          float (&acc)[4][4]) {
   constexpr int kVec = Smem::kVec;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-  for (int kk = 0; kk < hd; kk += kVec) {
+  for (int kk = 0; kk < width; kk += kVec) {
     float a[4][kVec], b[4][kVec];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -233,6 +262,15 @@ __device__ __forceinline__ void dot_tile(const float* A, const float* B,
         for (int q = 0; q < kVec; ++q)
           acc[i][j] = fmaf(a[i][q], b[j][q], acc[i][j]);
   }
+}
+
+// The column chunks of a head: the v1 kernels stage at most kMaxHd columns
+// of a head at a time.  Chunk c holds columns [c kMaxHd, c kMaxHd + width).
+__host__ __device__ __forceinline__ int n_chunks(int hd) {
+  return (hd + kMaxHd - 1) / kMaxHd;
+}
+__host__ __device__ __forceinline__ int chunk_width(int hd, int c) {
+  return hd - c * kMaxHd < kMaxHd ? hd - c * kMaxHd : kMaxHd;
 }
 
 // Sum over the 16 threads of a row (lanes tx = 0..15 of a half-warp).
@@ -296,9 +334,17 @@ __device__ __forceinline__ float masked_score(float dot, float scale,
 // forward
 // ---------------------------------------------------------------------------
 
+// kWide: a head wider than kMaxHd runs as column windows: blockIdx.z picks
+// output window w (chunk w's columns); every window forms the scores over
+// all of the head's chunks in chunk order, staging q and k a chunk at a
+// time, so the windows' scores, maxima and sums are the same.  Without it
+// (hd <= kMaxHd: one chunk, one window) the q tile is staged once, before
+// the walk, and the chunk loop compiles away.
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hd = a.hd, pitch = Smem::pitch(hd), e = a.nh * hd;
+  const int hd = a.hd, e = a.nh * hd, n_ch = kWide ? n_chunks(hd) : 1;
+  const int pitch = Smem::pitch(chunk_width(hd, 0));
   float* sq = reinterpret_cast<float*>(smem);
   float* sk = sq + kTile * pitch;
   float* sv = sk + kTile * pitch;
@@ -307,11 +353,12 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int n_qt = (a.t + kTile - 1) / kTile;
   const int qt = blockIdx.x % n_qt, s = blockIdx.x / n_qt, h = blockIdx.y;
+  const int w = kWide ? blockIdx.z : 0, col_w = h * hd + w * kMaxHd;
+  const int ncol = chunk_width(hd, w) / 16;
   const int row0 = qt * kTile;
-  const int ncol = hd / 16;
+  const T* qs = static_cast<const T*>(a.q) + (size_t)s * a.t * e;
 
-  stage_rows(static_cast<const float*>(a.q) + (size_t)s * a.t * e, a.t, e, row0,
-             h * hd, hd, sq, pitch);
+  if (!kWide) stage_rows(qs, a.t, e, row0, h * hd, hd, sq, pitch);
   float m[4], l[4], o[4][kMaxCols];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -323,18 +370,23 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
   const int n_walk = (a.p + kTile - 1) / kTile + qt + 1;
   for (int kt = 0; kt < n_walk; ++kt) {
     const KeyTile t = key_tile(a, s, kt);
-    const float* kp = static_cast<const float*>(t.prefix ? a.pk : a.k) + t.base;
-    const float* vp = static_cast<const float*>(t.prefix ? a.pv : a.v) + t.base;
+    const T* kp = static_cast<const T*>(t.prefix ? a.pk : a.k) + t.base;
+    const T* vp = static_cast<const T*>(t.prefix ? a.pv : a.v) + t.base;
     __syncthreads();  // the previous tile's sk, sv, sp are no longer read
-    stage_rows(kp, t.n, e, t.col0, h * hd, hd, sk, pitch);
-    stage_rows(vp, t.n, e, t.col0, h * hd, hd, sv, pitch);
+    stage_rows(vp, t.n, e, t.col0, col_w, ncol * 16, sv, pitch);
     if (threadIdx.x < kTile) {
       const int c = t.col0 + threadIdx.x;
       smask[threadIdx.x] = c < t.n ? t.mask[c] : 0.0f;
     }
-    __syncthreads();
-    float sc[4][4];
-    dot_tile(sq, sk, pitch, hd, sc);
+    float sc[4][4] = {};
+    for (int c = 0; c < n_ch; ++c) {
+      const int col = h * hd + c * kMaxHd, width = chunk_width(hd, c);
+      if (c > 0) __syncthreads();  // chunk c - 1's sq, sk are read
+      if (kWide) stage_rows(qs, a.t, e, row0, col, width, sq, pitch);
+      stage_rows(kp, t.n, e, t.col0, col, width, sk, pitch);
+      __syncthreads();
+      dot_tile(sq, sk, pitch, width, sc);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = row0 + ty + 16 * i;
@@ -352,7 +404,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
       for (int j = 0; j < 4; ++j) {
         const float p = expf(sc[i][j] - m_new);
         ps += p;
-        sp[(ty + 16 * i) * kSPitch + tx + 16 * j] = p;
+        // p v takes p rounded to the stream dtype; l sums it unrounded
+        sp[(ty + 16 * i) * kSPitch + tx + 16 * j] = round_to<T>(p);
       }
       l[i] = alpha * l[i] + row_sum(ps);
       m[i] = m_new;
@@ -381,11 +434,11 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
     const int r = row0 + ty + 16 * i;
     if (r >= a.t) continue;
     const float inv = 1.0f / (l[i] == 0.0f ? 1.0f : l[i]);
-    float* out = a.out + ((size_t)s * a.t + r) * e + h * hd;
+    float* out = a.out + ((size_t)s * a.t + r) * e + col_w;
 #pragma unroll
     for (int j = 0; j < kMaxCols; ++j)
       if (j < ncol) out[tx + 16 * j] = o[i][j] * inv;
-    if (tx == 0)
+    if (tx == 0 && w == 0)
       a.lse_out[((size_t)s * a.nh + h) * a.t + r] =
           m[i] + logf(fmaxf(l[i], 1e-30f));
   }
@@ -395,9 +448,14 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(Args a) {
 // backward: dq
 // ---------------------------------------------------------------------------
 
+// Column windows as in the forward (kWide); the scores walk the chunks
+// starting after window w's, so the chunk staged last is the k window
+// dq += ds k reads.
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hd = a.hd, pitch = Smem::pitch(hd), e = a.nh * hd;
+  const int hd = a.hd, e = a.nh * hd, n_ch = kWide ? n_chunks(hd) : 1;
+  const int pitch = Smem::pitch(chunk_width(hd, 0));
   float* sq = reinterpret_cast<float*>(smem);
   float* sg = sq + kTile * pitch;
   float* sk = sg + kTile * pitch;
@@ -409,14 +467,17 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const int n_qt = (a.t + kTile - 1) / kTile;
   const int qt = blockIdx.x % n_qt, s = blockIdx.x / n_qt, h = blockIdx.y;
+  const int w = kWide ? blockIdx.z : 0, col_w = h * hd + w * kMaxHd;
+  const int ncol = chunk_width(hd, w) / 16;
   const int row0 = qt * kTile;
-  const int ncol = hd / 16;
   const size_t qbase = (size_t)s * a.t * e;
+  const T* qs = static_cast<const T*>(a.q) + qbase;
+  const T* gs = static_cast<const T*>(a.g) + qbase;
 
-  stage_rows(static_cast<const float*>(a.q) + qbase, a.t, e, row0, h * hd, hd,
-             sq, pitch);
-  stage_rows(static_cast<const float*>(a.g) + qbase, a.t, e, row0, h * hd, hd,
-             sg, pitch);
+  if (!kWide) {
+    stage_rows(qs, a.t, e, row0, h * hd, hd, sq, pitch);
+    stage_rows(gs, a.t, e, row0, h * hd, hd, sg, pitch);
+  }
   if (threadIdx.x < kTile) {
     const int r = row0 + threadIdx.x;
     const size_t at = ((size_t)s * a.nh + h) * a.t + r;
@@ -432,19 +493,28 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
   const int n_walk = (a.p + kTile - 1) / kTile + qt + 1;
   for (int kt = 0; kt < n_walk; ++kt) {
     const KeyTile t = key_tile(a, s, kt);
-    const float* kp = static_cast<const float*>(t.prefix ? a.pk : a.k) + t.base;
-    const float* vp = static_cast<const float*>(t.prefix ? a.pv : a.v) + t.base;
+    const T* kp = static_cast<const T*>(t.prefix ? a.pk : a.k) + t.base;
+    const T* vp = static_cast<const T*>(t.prefix ? a.pv : a.v) + t.base;
     __syncthreads();  // the previous tile's sk, sv, sds are no longer read
-    stage_rows(kp, t.n, e, t.col0, h * hd, hd, sk, pitch);
-    stage_rows(vp, t.n, e, t.col0, h * hd, hd, sv, pitch);
     if (threadIdx.x < kTile) {
       const int c = t.col0 + threadIdx.x;
       smask[threadIdx.x] = c < t.n ? t.mask[c] : 0.0f;
     }
-    __syncthreads();
-    float sc[4][4], dp[4][4];
-    dot_tile(sq, sk, pitch, hd, sc);
-    dot_tile(sg, sv, pitch, hd, dp);
+    float sc[4][4] = {}, dp[4][4] = {};
+    for (int i = 0; i < n_ch; ++i) {
+      const int c = (w + 1 + i) % n_ch;
+      const int col = h * hd + c * kMaxHd, width = chunk_width(hd, c);
+      if (i > 0) __syncthreads();  // the previous chunk's tiles are read
+      if (kWide) {
+        stage_rows(qs, a.t, e, row0, col, width, sq, pitch);
+        stage_rows(gs, a.t, e, row0, col, width, sg, pitch);
+      }
+      stage_rows(kp, t.n, e, t.col0, col, width, sk, pitch);
+      stage_rows(vp, t.n, e, t.col0, col, width, sv, pitch);
+      __syncthreads();
+      dot_tile(sq, sk, pitch, width, sc);
+      dot_tile(sg, sv, pitch, width, dp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int rl = ty + 16 * i, r = row0 + rl;
@@ -455,7 +525,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
                                      r);
         const float p = r < a.t ? expf(x - slse[rl]) : 0.0f;
         sds[rl * kSPitch + tx + 16 * j] =
-            p * (dp[i][j] - sdelta[rl]) * a.scale;
+            round_to<T>(p * (dp[i][j] - sdelta[rl]) * a.scale);
       }
     }
     __syncthreads();
@@ -479,7 +549,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
   for (int i = 0; i < 4; ++i) {
     const int r = row0 + ty + 16 * i;
     if (r >= a.t) continue;
-    float* out = a.dq + qbase + (size_t)r * e + h * hd;
+    float* out = a.dq + qbase + (size_t)r * e + col_w;
 #pragma unroll
     for (int j = 0; j < kMaxCols; ++j)
       if (j < ncol) out[tx + 16 * j] = dq[i][j];
@@ -490,9 +560,15 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(Args a) {
 // backward: dk / dv per branch
 // ---------------------------------------------------------------------------
 
+// Column windows as in dq (kWide: blockIdx.z = head x windows + window);
+// the chunk staged last is the q and g window that dk += ds^T q and dv +=
+// p^T g read.  Without it the K and V tiles stay resident for the whole
+// walk.
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int hd = a.hd, pitch = Smem::pitch(hd), e = a.nh * hd;
+  const int hd = a.hd, e = a.nh * hd, n_ch = kWide ? n_chunks(hd) : 1;
+  const int pitch = Smem::pitch(chunk_width(hd, 0));
   float* sk = reinterpret_cast<float*>(smem);
   float* sv = sk + kTile * pitch;
   float* sq = sv + kTile * pitch;
@@ -503,24 +579,28 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
   float* slse = smask + kTile;                                 // [64]
   float* sdelta = slse + kTile;                                // [64]
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int ncol = hd / 16;
   const int n_qt = (a.t + kTile - 1) / kTile;
   // blockIdx.y: items, first the B episodes' prefixes, then the S songs
   const int n_ep = a.p > 0 ? a.songs / a.q_per_ep : 0;
   const int item = blockIdx.y;
   const bool prefix = item < n_ep;
   const int n = prefix ? a.p : a.t;
-  const int kt = blockIdx.x, h = blockIdx.z;
+  const int kt = blockIdx.x, h = kWide ? blockIdx.z / n_ch : blockIdx.z;
+  const int w = kWide ? blockIdx.z % n_ch : 0;
+  const int col_w = h * hd + w * kMaxHd;
+  const int ncol = chunk_width(hd, w) / 16;
   const int col0 = kt * kTile;
   if (col0 >= n) return;
   const size_t kbase = (size_t)(prefix ? item : item - n_ep) * n * e;
-  const float* kp = static_cast<const float*>(prefix ? a.pk : a.k) + kbase;
-  const float* vp = static_cast<const float*>(prefix ? a.pv : a.v) + kbase;
+  const T* kp = static_cast<const T*>(prefix ? a.pk : a.k) + kbase;
+  const T* vp = static_cast<const T*>(prefix ? a.pv : a.v) + kbase;
   const float* mk = prefix ? a.pmask + (size_t)item * a.p
                            : a.kmask + (size_t)(item - n_ep) * a.t;
 
-  stage_rows(kp, n, e, col0, h * hd, hd, sk, pitch);
-  stage_rows(vp, n, e, col0, h * hd, hd, sv, pitch);
+  if (!kWide) {
+    stage_rows(kp, n, e, col0, h * hd, hd, sk, pitch);
+    stage_rows(vp, n, e, col0, h * hd, hd, sv, pitch);
+  }
   if (threadIdx.x < kTile) {
     const int c = col0 + threadIdx.x;
     smask[threadIdx.x] = c < n ? mk[c] : 0.0f;
@@ -547,23 +627,32 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
   for (int si = 0; si < n_songs; ++si) {
     const int s = s0 + si;
     const size_t qbase = (size_t)s * a.t * e;
+    const T* qs = static_cast<const T*>(a.q) + qbase;
+    const T* gs = static_cast<const T*>(a.g) + qbase;
     for (int qt = qt0; qt < n_qt; ++qt) {
       const int row0 = qt * kTile;
       __syncthreads();  // the previous tile's sq, sg, sp, sds are read
-      stage_rows(static_cast<const float*>(a.q) + qbase, a.t, e, row0,
-                 h * hd, hd, sq, pitch);
-      stage_rows(static_cast<const float*>(a.g) + qbase, a.t, e, row0,
-                 h * hd, hd, sg, pitch);
       if (threadIdx.x < kTile) {
         const int r = row0 + threadIdx.x;
         const size_t at = ((size_t)s * a.nh + h) * a.t + r;
         slse[threadIdx.x] = r < a.t ? a.lse[at] : 0.0f;
         sdelta[threadIdx.x] = r < a.t ? a.delta[at] : 0.0f;
       }
-      __syncthreads();
-      float sc[4][4], dp[4][4];
-      dot_tile(sq, sk, pitch, hd, sc);
-      dot_tile(sg, sv, pitch, hd, dp);
+      float sc[4][4] = {}, dp[4][4] = {};
+      for (int i = 0; i < n_ch; ++i) {
+        const int c = (w + 1 + i) % n_ch;
+        const int col = h * hd + c * kMaxHd, width = chunk_width(hd, c);
+        if (i > 0) __syncthreads();  // the previous chunk's tiles are read
+        if (kWide) {
+          stage_rows(kp, n, e, col0, col, width, sk, pitch);
+          stage_rows(vp, n, e, col0, col, width, sv, pitch);
+        }
+        stage_rows(qs, a.t, e, row0, col, width, sq, pitch);
+        stage_rows(gs, a.t, e, row0, col, width, sg, pitch);
+        __syncthreads();
+        dot_tile(sq, sk, pitch, width, sc);
+        dot_tile(sg, sv, pitch, width, dp);
+      }
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int rl = ty + 16 * i, r = row0 + rl;
@@ -573,9 +662,9 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
           const float x = masked_score(sc[i][j], a.scale, t, col0 + cl,
                                        smask[cl], r);
           const float p = r < a.t ? expf(x - slse[rl]) : 0.0f;
-          sp[rl * kSPitch + cl] = p;
+          sp[rl * kSPitch + cl] = round_to<T>(p);
           sds[rl * kSPitch + cl] =
-              p * (dp[i][j] - sdelta[rl]) * a.scale;
+              round_to<T>(p * (dp[i][j] - sdelta[rl]) * a.scale);
         }
       }
       __syncthreads();
@@ -612,8 +701,8 @@ __global__ void __launch_bounds__(kThreads) dkv_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < kMaxCols; ++j) {
       if (j < ncol) {
-        dk_out[(size_t)c * e + h * hd + tx + 16 * j] = dk[i][j];
-        dv_out[(size_t)c * e + h * hd + tx + 16 * j] = dv[i][j];
+        dk_out[(size_t)c * e + col_w + tx + 16 * j] = dk[i][j];
+        dv_out[(size_t)c * e + col_w + tx + 16 * j] = dv[i][j];
       }
     }
   }
@@ -1240,8 +1329,7 @@ __global__ void __launch_bounds__(kTcThreads, 2) dkv_tc_kernel(Args a) {
 
 bool bad_shape(const Args& a) {
   return a.songs < 0 || a.t < 0 || a.p < 0 || a.nh <= 0 || a.hd <= 0 ||
-         a.hd % 16 || a.hd > kMaxHd || a.q_per_ep <= 0 ||
-         a.songs % a.q_per_ep;
+         a.hd % 16 || a.q_per_ep <= 0 || a.songs % a.q_per_ep;
 }
 
 template <typename K>
@@ -1255,14 +1343,22 @@ cudaError_t launch(K kernel, dim3 grid, size_t smem, const Args& a,
   return cudaGetLastError();
 }
 
-// query tiles x songs, heads
-dim3 query_grid(const Args& a) {
-  return dim3(((a.t + kTile - 1) / kTile) * a.songs, a.nh);
+// query tiles x songs, heads, column windows (v1)
+dim3 query_grid(const Args& a, int windows = 1) {
+  return dim3(((a.t + kTile - 1) / kTile) * a.songs, a.nh, windows);
 }
 
+// shared memory of a v1 kernel: n_tiles [64, chunk] tiles, n_scores score
+// tiles
+size_t v1_smem(const Args& a, int n_tiles, int n_scores) {
+  return Smem::bytes(chunk_width(a.hd, 0), n_tiles, n_scores);
+}
+
+template <typename T, bool kWide>
 cudaError_t fwd(const Args& a, cudaStream_t st) {
-  return launch(fwd_kernel, query_grid(a), Smem::bytes(a.hd, 3, 1), a,
-                st);
+  const int windows = kWide ? n_chunks(a.hd) : 1;
+  return launch(fwd_kernel<T, kWide>, query_grid(a, windows),
+                v1_smem(a, 3, 1), a, st);
 }
 
 cudaError_t fwd_tc(const Args& a, cudaStream_t st) {
@@ -1270,9 +1366,11 @@ cudaError_t fwd_tc(const Args& a, cudaStream_t st) {
                 kTcThreads);
 }
 
+template <typename T, bool kWide>
 cudaError_t bwd_dq(const Args& a, cudaStream_t st) {
-  return launch(dq_kernel, query_grid(a), Smem::bytes(a.hd, 4, 1), a,
-                st);
+  const int windows = kWide ? n_chunks(a.hd) : 1;
+  return launch(dq_kernel<T, kWide>, query_grid(a, windows),
+                v1_smem(a, 4, 1), a, st);
 }
 
 cudaError_t bwd_dq_tc(const Args& a, cudaStream_t st) {
@@ -1280,16 +1378,19 @@ cudaError_t bwd_dq_tc(const Args& a, cudaStream_t st) {
                 kTcThreads);
 }
 
-// key tiles, items (the B episodes' prefixes, then the S songs), heads
-dim3 key_grid(const Args& a) {
+// key tiles, items (the B episodes' prefixes, then the S songs), heads x
+// column windows (v1)
+dim3 key_grid(const Args& a, int windows = 1) {
   const int n_ep = a.p > 0 ? a.songs / a.q_per_ep : 0;
   const int kmax = a.p > a.t ? a.p : a.t;
-  return dim3((kmax + kTile - 1) / kTile, n_ep + a.songs, a.nh);
+  return dim3((kmax + kTile - 1) / kTile, n_ep + a.songs, a.nh * windows);
 }
 
+template <typename T, bool kWide>
 cudaError_t bwd_dkv(const Args& a, cudaStream_t st) {
-  return launch(dkv_kernel, key_grid(a), Smem::bytes(a.hd, 4, 2), a,
-                st);
+  const int windows = kWide ? n_chunks(a.hd) : 1;
+  return launch(dkv_kernel<T, kWide>, key_grid(a, windows),
+                v1_smem(a, 4, 2), a, st);
 }
 
 cudaError_t bwd_dkv_tc(const Args& a, cudaStream_t st) {
@@ -1300,7 +1401,7 @@ cudaError_t bwd_dkv_tc(const Args& a, cudaStream_t st) {
 Args make_args(const void* q, const void* k, const void* v,
                const float* kmask, const void* pk, const void* pv,
                const float* pmask, int songs, int t, int p, int q_per_ep,
-               int nh, int hd) {
+               int nh, int hd, float scale) {
   Args a{};
   a.q = q;
   a.k = k;
@@ -1315,7 +1416,7 @@ Args make_args(const void* q, const void* k, const void* v,
   a.q_per_ep = q_per_ep;
   a.nh = nh;
   a.hd = hd;
-  a.scale = (float)(1.0 / sqrt((double)hd));
+  a.scale = scale;
   return a;
 }
 
@@ -1326,40 +1427,44 @@ bool empty(const Args& a) { return a.songs == 0 || a.t == 0; }
 // dtype: 0 = fp32 streams, 1 = bf16 streams.  q, k, v [S, T, E] and
 // pk, pv [B, P, E] (B = S / Q; null with P = 0) in the stream dtype, E =
 // nh hd; kmask [S, T] and pmask [B, P] fp32 (> 0 = real key).
-// Out: out [S, T, E] and lse [S, nh, T] fp32.  dtype 0 runs the v1 SIMT
-// kernel, dtype 1 the tensor-core kernel.  Returns a cudaError_t code
-// (0 = launched).
+// hd a multiple of 16; scale the scores' factor (1 / sqrt of the unpadded
+// head width).  Out: out [S, T, E] and lse [S, nh, T] fp32.  dtype 0 runs
+// the v1 SIMT kernel, dtype 1 the tensor-core kernel (the v1 kernel past
+// hd = 128).  Returns a cudaError_t code (0 = launched).
 extern "C" int prefix_attn_fwd(const void* q, const void* k, const void* v,
                                const float* kmask, const void* pk,
                                const void* pv, const float* pmask, float* out,
                                float* lse, int songs, int t, int p,
-                               int q_per_ep, int nh, int hd, int dtype,
-                               void* stream) {
+                               int q_per_ep, int nh, int hd, float scale,
+                               int dtype, void* stream) {
   Args a = make_args(q, k, v, kmask, pk, pv, pmask, songs, t, p, q_per_ep,
-                     nh, hd);
+                     nh, hd, scale);
   a.out = out;
   a.lse_out = lse;
   if (bad_shape(a)) return cudaErrorInvalidValue;
   if (empty(a)) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return fwd(a, st);
-  if (dtype == 1) return fwd_tc(a, st);
+  const bool wide = a.hd > kMaxHd;
+  if (dtype == 0)
+    return wide ? fwd<float, true>(a, st) : fwd<float, false>(a, st);
+  if (dtype == 1)
+    return wide ? fwd<__nv_bfloat16, true>(a, st) : fwd_tc(a, st);
   return cudaErrorInvalidValue;
 }
 
 // The forward's inputs, the cotangent g [S, T, E] in the stream dtype, the
 // forward's lse and delta [S, nh, T] fp32.  Out: dq [S, T, E] fp32.  dtype 0
-// runs the v1 SIMT kernel, dtype 1 the tensor-core kernel (as does
-// prefix_attn_bwd_dkv).
+// runs the v1 SIMT kernel, dtype 1 the tensor-core kernel up to hd = 128
+// (as does prefix_attn_bwd_dkv).
 extern "C" int prefix_attn_bwd_dq(const void* q, const void* k, const void* v,
                                   const float* kmask, const void* pk,
                                   const void* pv, const float* pmask,
                                   const void* g, const float* lse,
                                   const float* delta, float* dq, int songs,
                                   int t, int p, int q_per_ep, int nh, int hd,
-                                  int dtype, void* stream) {
+                                  float scale, int dtype, void* stream) {
   Args a = make_args(q, k, v, kmask, pk, pv, pmask, songs, t, p, q_per_ep,
-                     nh, hd);
+                     nh, hd, scale);
   a.g = g;
   a.lse = lse;
   a.delta = delta;
@@ -1367,8 +1472,11 @@ extern "C" int prefix_attn_bwd_dq(const void* q, const void* k, const void* v,
   if (bad_shape(a)) return cudaErrorInvalidValue;
   if (empty(a)) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return bwd_dq(a, st);
-  if (dtype == 1) return bwd_dq_tc(a, st);
+  const bool wide = a.hd > kMaxHd;
+  if (dtype == 0)
+    return wide ? bwd_dq<float, true>(a, st) : bwd_dq<float, false>(a, st);
+  if (dtype == 1)
+    return wide ? bwd_dq<__nv_bfloat16, true>(a, st) : bwd_dq_tc(a, st);
   return cudaErrorInvalidValue;
 }
 
@@ -1381,10 +1489,10 @@ extern "C" int prefix_attn_bwd_dkv(const void* q, const void* k,
                                    const float* lse, const float* delta,
                                    float* dk, float* dv, float* dpk,
                                    float* dpv, int songs, int t, int p,
-                                   int q_per_ep, int nh, int hd, int dtype,
-                                   void* stream) {
+                                   int q_per_ep, int nh, int hd,
+                                   float scale, int dtype, void* stream) {
   Args a = make_args(q, k, v, kmask, pk, pv, pmask, songs, t, p, q_per_ep,
-                     nh, hd);
+                     nh, hd, scale);
   a.g = g;
   a.lse = lse;
   a.delta = delta;
@@ -1395,7 +1503,10 @@ extern "C" int prefix_attn_bwd_dkv(const void* q, const void* k,
   if (bad_shape(a)) return cudaErrorInvalidValue;
   if (empty(a)) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return bwd_dkv(a, st);
-  if (dtype == 1) return bwd_dkv_tc(a, st);
+  const bool wide = a.hd > kMaxHd;
+  if (dtype == 0)
+    return wide ? bwd_dkv<float, true>(a, st) : bwd_dkv<float, false>(a, st);
+  if (dtype == 1)
+    return wide ? bwd_dkv<__nv_bfloat16, true>(a, st) : bwd_dkv_tc(a, st);
   return cudaErrorInvalidValue;
 }

@@ -25,9 +25,10 @@ TPU kernel's batch tile is a multiple of 32 (``saved_gates_dtype``).
 
 ``lstm_layer_fwd`` and ``lstm_layer_bwd`` run the kernels on CUDA tensors
 and the plain twins on CPU tensors; there is no fallback from one to the
-other.  Both refuse a hidden size whose narrowest step-kernel tile does not
-fit in one block's shared memory; the backward's contraction is 4H deep, so
-its limit (``max_hidden_bwd``) is lower, and train mode raises above it.
+other.  The step kernels walk the contraction in chunks through a
+shared-memory ring, so they take every H that is a multiple of 32, in train
+mode and serving alike: where the JAX package leaves its kernel for the
+plain scan (Wh past the TPU's VMEM budget), the port still runs its kernels.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import torch
 
 from fewshot_torch.models.lstm import FORGET_BIAS, cell_update, matmul_f32
 from fewshot_torch.ops import _ext
-from fewshot_torch.ops._ext import (DTYPE_CODE, SMEM_BYTES, check_tensors,
+from fewshot_torch.ops._ext import (DTYPE_CODE, check_tensors,
                                     contiguous_as, itemsize, needs_grad,
                                     stream)
 
@@ -126,26 +127,6 @@ def decode_gates(q: torch.Tensor) -> torch.Tensor:
                       (so + 1.0) * 0.5], dim=-1)
 
 
-def max_hidden(dtype: torch.dtype) -> int:
-    """The largest hidden size the forward kernels take in dtype.
-
-    Their narrowest tile (csrc/lstm_fwd.cu: 16 rows x 4 units) stages 16
-    fp32 h rows of H + 4 floats and the H x 16 weight columns of its units
-    in shared memory."""
-    per_unit = 16 * 4 + 16 * itemsize(dtype)
-    return (SMEM_BYTES - 16 * 4 * 4) // per_unit // 32 * 32
-
-
-def max_hidden_bwd(dtype: torch.dtype) -> int:
-    """The largest hidden size the backward kernels take in dtype.
-
-    Their narrowest tile (csrc/lstm_bwd.cu: 16 rows x 4 units) stages 16
-    rows of dz and the 4 Wh rows of its units, each 4H wide in dtype plus
-    16 bytes of padding."""
-    per_row = SMEM_BYTES // 20 - 16
-    return per_row // (4 * itemsize(dtype)) // 32 * 32
-
-
 def _check_fp32(want: dict) -> None:
     for name, (x, shape) in want.items():
         if x.dtype != torch.float32 or tuple(x.shape) != shape:
@@ -162,7 +143,6 @@ def _check_inputs(zx, wh, b, mask, h0, c0) -> None:
     if four_h % 4 or hidden % 32 or tuple(wh.shape) != (hidden, four_h):
         raise ValueError(f"bad shapes zx {tuple(zx.shape)}, wh "
                          f"{tuple(wh.shape)} (H must be a multiple of 32)")
-    check_hidden(hidden, zx.dtype)
     _check_fp32({"b": (b, (four_h,)), "mask": (mask, (t_, b_, 1)),
                  "h0": (h0, (b_, hidden)), "c0": (c0, (b_, hidden))})
     check_tensors(zx, wh, b, mask, h0, c0)
@@ -181,7 +161,6 @@ def _check_bwd_inputs(gates, wh, mask, cs, c0, dys, dhT, dcT) -> None:
         raise ValueError(f"bad shapes gates {tuple(gates.shape)}, wh "
                          f"{tuple(wh.shape)}, cs {tuple(cs.shape)}, dys "
                          f"{tuple(dys.shape)}")
-    check_hidden_bwd(hidden, dys.dtype)
     _check_fp32({"mask": (mask, (t_, b_, 1)), "c0": (c0, (b_, hidden)),
                  "dhT": (dhT, (b_, hidden)), "dcT": (dcT, (b_, hidden))})
     check_tensors(gates, wh, mask, cs, c0, dys, dhT, dcT)
@@ -201,26 +180,6 @@ def pick_route(route, fits: bool, shape: str) -> str:
 def _route(route, rows: int, hidden: int, dtype: torch.dtype) -> str:
     return pick_route(route, persistent_route(rows, hidden, dtype),
                       f"rows={rows}, hidden={hidden}, {dtype}")
-
-
-def check_hidden(hidden: int, dtype: torch.dtype) -> None:
-    """Raise on a hidden size past the forward kernels' shared-memory
-    limit."""
-    if hidden > max_hidden(dtype):
-        raise ValueError(
-            f"hidden size {hidden} exceeds the LSTM kernels' limit of "
-            f"{max_hidden(dtype)} for {dtype} (one block's shared memory)")
-
-
-def check_hidden_bwd(hidden: int, dtype: torch.dtype) -> None:
-    """Raise on a hidden size past the backward kernels' shared-memory
-    limit (train mode)."""
-    if hidden > max_hidden_bwd(dtype):
-        raise ValueError(
-            f"hidden size {hidden} exceeds the LSTM backward kernels' limit "
-            f"of {max_hidden_bwd(dtype)} for {dtype} (one block's shared "
-            f"memory holds 16 rows of the 4H-deep contraction); train at a "
-            f"smaller hidden size")
 
 
 def cell_bwd(g, c_t, c_prev, dh, dc, mf):
@@ -456,7 +415,6 @@ class LSTMLayerFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, zx, wh, b, mask, h0, c0):
-        check_hidden_bwd(wh.shape[0], wh.dtype)
         ys, cs, hT, cT, gates = lstm_layer_fwd(zx, wh, b, mask, h0, c0,
                                                save_gates=True)
         ctx.save_for_backward(wh, mask, h0, c0, ys, cs, gates)

@@ -19,7 +19,10 @@ cooperative launch for as many row tiles as the card holds at once
 (``stack_row_splits``).  Co-residency is the launch's contract: a launch
 the card cannot hold is refused, never run in part.  fp32, and every other
 stack, run the step kernels (``lstm_fwd_stack``, ``lstm_bwd_stack``: one
-launch per layer and time step).
+launch per layer and time step), which share the per-layer step kernels'
+chunked contraction and so take every H % 32 == 0: the stack has no width
+limit of its own, above what ``stack_fused_supported`` admits (the TPU's
+8 MiB weight budget: at most H = 384 fp32 and 512 bf16 for two layers).
 
 ``stack_fused_supported`` is a copy of the JAX package's predicate,
 including its TPU VMEM arithmetic, so that one config runs the same kernel
@@ -36,7 +39,6 @@ from fewshot_torch.ops import _ext
 from fewshot_torch.ops._ext import (DTYPE_CODE, check_tensors, contiguous_as,
                                     needs_grad, stream)
 from fewshot_torch.ops.lstm_layer import (ROUTES, _check_fp32, cell_bwd,
-                                          check_hidden, check_hidden_bwd,
                                           gate_acts, persistent_route,
                                           pick_route, weight_grad)
 
@@ -104,7 +106,6 @@ def _check_inputs(zx, wx_rest, wh, b, mask, h0, c0) -> None:
             or tuple(wx_rest.shape) != (n_layers - 1, hidden, four_h):
         raise ValueError(f"bad shapes zx {tuple(zx.shape)}, wx_rest "
                          f"{tuple(wx_rest.shape)}, wh {tuple(wh.shape)}")
-    check_hidden(hidden, zx.dtype)
     _check_fp32({"b": (b, (n_layers, four_h)), "mask": (mask, (t_, b_, 1)),
                  "h0": (h0, (n_layers, b_, hidden)),
                  "c0": (c0, (n_layers, b_, hidden))})
@@ -127,7 +128,6 @@ def _check_bwd_inputs(gates, wx_rest, wh, mask, cs, c0, dys, dhT,
         raise ValueError(f"bad shapes gates {tuple(gates.shape)}, wx_rest "
                          f"{tuple(wx_rest.shape)}, wh {tuple(wh.shape)}, cs "
                          f"{tuple(cs.shape)}, dys {tuple(dys.shape)}")
-    check_hidden_bwd(hidden, gates.dtype)
     state = (n_layers, b_, hidden)
     _check_fp32({"mask": (mask, (t_, b_, 1)), "c0": (c0, state),
                  "dhT": (dhT, state), "dcT": (dcT, state)})
@@ -391,7 +391,6 @@ class LSTMStackFn(torch.autograd.Function):
     def forward(ctx, zx, wx_rest, wh, b, mask, h0, c0):
         n_layers, hidden = wh.shape[0], wh.shape[1]
         check_train_tiles(zx.shape[1], hidden, n_layers, wh.dtype)
-        check_hidden_bwd(hidden, wh.dtype)
         ys, cs, hT, cT, gates = lstm_stack_fwd(zx, wx_rest, wh, b, mask, h0,
                                                c0, save_gates=True)
         ctx.save_for_backward(wx_rest, wh, mask, h0, c0, ys, cs, gates)
@@ -498,7 +497,8 @@ def stack_fused_supported(layers, compute_dtype, batch_rows: int = 0,
     """Does this stack run on the fused kernel (else per layer)?
 
     The same answer as fewshot.ops.lstm_fused.stack_fused_supported for the
-    same parameters, dtype, row count and mode."""
+    same parameters, dtype, row count and mode.  Its weight budget admits
+    no H the stack kernels refuse: they take every H % 32 == 0."""
     if len(layers) < 2:
         return False
     hidden = layers[0].wh.shape[0]

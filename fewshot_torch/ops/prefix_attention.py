@@ -30,8 +30,13 @@ twins take p against the row's final maximum (the resident plans, kernels
 8-9), the kernels against the running maximum of their online softmax (the
 streaming plan, kernel 7): in bf16 the two round p at different points.
 
-A wrapper runs its kernel on CUDA tensors and its plain twin on CPU
-tensors; there is no fallback from one to the other.  ``launches`` on each
+The kernels take any head width: one that is not a multiple of 16 is
+padded with zero columns for the launch (``pad_heads``: a copy of q, k, v,
+g and the prefix per call, only at such widths), and past 128 the bf16
+kernels are the v1 kernels run as 128-wide column windows
+(``csrc/prefix_attn.cu``).  A wrapper runs its kernel on CUDA tensors and
+its plain twin on CPU tensors; there is no fallback from one to the
+other.  ``launches`` on each
 wrapper counts the calls that launched the kernel.
 """
 
@@ -46,14 +51,27 @@ from fewshot_torch.ops._ext import (DTYPE_CODE, check_tensors, needs_grad,
                                     stream)
 
 NEG = -1e30
-MAX_HEAD_DIM = 128      # the kernels' accumulators: hd / 16 columns a thread
+HD_STEP = 16            # the kernels' head width is a multiple of this
 
 
-def check_head_dim(hd: int) -> None:
-    if hd % 16 or not 0 < hd <= MAX_HEAD_DIM:
-        raise ValueError(f"the prefix-attention kernels take a head width "
-                         f"that is a multiple of 16, at most {MAX_HEAD_DIM}; "
-                         f"got {hd}")
+def pad_heads(x: torch.Tensor, nh: int, hdp: int) -> torch.Tensor:
+    """[N, T, nh hd] -> [N, T, nh hdp] (contiguous): each head's hd columns
+    followed by hdp - hd zero columns.  Zero columns of q, k, v and g leave
+    every score, lse and delta unchanged."""
+    n, t, e = x.shape
+    hd = e // nh
+    if hdp == hd:
+        return x.contiguous()
+    return torch.nn.functional.pad(x.reshape(n, t, nh, hd),
+                                   (0, hdp - hd)).reshape(n, t, nh * hdp)
+
+
+def unpad_heads(x: torch.Tensor, nh: int, hd: int) -> torch.Tensor:
+    """The inverse of ``pad_heads``: each head's first hd columns."""
+    n, t, ep = x.shape
+    if ep == nh * hd:
+        return x
+    return x.view(n, t, nh, ep // nh)[..., :hd].reshape(n, t, nh * hd)
 
 
 def _heads(x: torch.Tensor, nh: int) -> torch.Tensor:
@@ -173,7 +191,6 @@ def _check_inputs(q, k, v, kmask, pk, pv, pmask, nh, *rest) -> None:
         raise TypeError(f"streams must be fp32 or bf16, got {q.dtype}")
     if e % nh:
         raise ValueError(f"nh={nh} does not divide E={e}")
-    check_head_dim(e // nh)
     shapes_ok = (k.shape == v.shape == q.shape
                  and k.dtype == v.dtype == q.dtype
                  and tuple(kmask.shape) == (s_, t))
@@ -201,28 +218,44 @@ def _check_inputs(q, k, v, kmask, pk, pv, pmask, nh, *rest) -> None:
 
 
 def _launch(fn_name, q, k, v, kmask, pk, pv, pmask, nh, rest, outs):
-    """Launch one kernel on contiguous copies of the inputs; rest: the
-    backward's (g, lse, delta); outs: the output tensors (None allowed)."""
+    """Launch one kernel on contiguous copies of the inputs, each head
+    padded with zero columns to a multiple of HD_STEP where it is not one
+    (``pad_heads``; the scale stays the unpadded head's); rest: the
+    backward's (g, lse, delta); outs: the outputs' kinds, "stream" [S, T,
+    E], "prefix" [B, P, E] or "lse" [S, nh, T], fp32.  Returns the
+    outputs, unpadded."""
     if q.device.type != "cuda":
         raise ValueError(f"no prefix-attention kernel for device {q.device}")
     s_, t, e = q.shape
+    hd = e // nh
+    hdp = -(-hd // HD_STEP) * HD_STEP
     p = 0 if pk is None else pk.shape[1]
     q_per_ep = 1 if pk is None else s_ // pk.shape[0]
-    ins = [x.contiguous() for x in (q, k, v)] + [kmask.float().contiguous()]
+    ins = [pad_heads(x, nh, hdp) for x in (q, k, v)] + \
+        [kmask.float().contiguous()]
     pre = ([None] * 3 if pk is None else
-           [pk.contiguous(), pv.contiguous(), pmask.float().contiguous()])
-    rest = [x.contiguous() for x in rest]
-    check_tensors(*ins, *[x for x in pre if x is not None], *rest,
-                  *[x for x in outs if x is not None])
+           [pad_heads(pk, nh, hdp), pad_heads(pv, nh, hdp),
+            pmask.float().contiguous()])
+    if rest:
+        g, lse, delta = rest
+        rest = [pad_heads(g, nh, hdp), lse.contiguous(), delta.contiguous()]
+    shapes = {"stream": (s_, t, nh * hdp), "lse": (s_, nh, t),
+              "prefix": (0 if pk is None else pk.shape[0], p, nh * hdp)}
+    out = [torch.empty(shapes[kind], device=q.device) for kind in outs]
+    check_tensors(*ins, *[x for x in pre if x is not None], *rest, *out)
     lib = _ext.load("prefix_attn")
+    ptrs = [x.data_ptr() for x in out] + [None] * (
+        4 - len(out) if fn_name == "prefix_attn_bwd_dkv" else 0)
     with torch.cuda.device(q.device):
         err = getattr(lib, fn_name)(
             *(x.data_ptr() for x in ins),
             *(None if x is None else x.data_ptr() for x in pre),
-            *(x.data_ptr() for x in rest),
-            *(None if x is None else x.data_ptr() for x in outs),
-            s_, t, p, q_per_ep, nh, e // nh, DTYPE_CODE[q.dtype], stream(q))
+            *(x.data_ptr() for x in rest), *ptrs,
+            s_, t, p, q_per_ep, nh, hdp, 1.0 / math.sqrt(hd),
+            DTYPE_CODE[q.dtype], stream(q))
     _ext.check(err, fn_name)
+    return [x if kind == "lse" else unpad_heads(x, nh, hd)
+            for x, kind in zip(out, outs)]
 
 
 def prefix_attn_fwd(q, k, v, kmask, pk, pv, pmask, nh):
@@ -231,11 +264,8 @@ def prefix_attn_fwd(q, k, v, kmask, pk, pv, pmask, nh):
     _check_inputs(q, k, v, kmask, pk, pv, pmask, nh)
     if q.device.type == "cpu":
         return prefix_attn_fwd_plain(q, k, v, kmask, pk, pv, pmask, nh)
-    s_, t, _ = q.shape
-    out = torch.empty(q.shape, device=q.device)
-    lse = torch.empty((s_, nh, t), device=q.device)
-    _launch("prefix_attn_fwd", q, k, v, kmask, pk, pv, pmask, nh, (),
-            (out, lse))
+    out, lse = _launch("prefix_attn_fwd", q, k, v, kmask, pk, pv, pmask, nh,
+                       (), ("stream", "lse"))
     prefix_attn_fwd.launches += 1
     return out, lse
 
@@ -250,9 +280,8 @@ def prefix_attn_bwd_dq(q, k, v, kmask, pk, pv, pmask, g, lse, delta, nh):
     if q.device.type == "cpu":
         return prefix_attn_bwd_dq_plain(q, k, v, kmask, pk, pv, pmask, g,
                                         lse, delta, nh)
-    dq = torch.empty(q.shape, device=q.device)
-    _launch("prefix_attn_bwd_dq", q, k, v, kmask, pk, pv, pmask, nh,
-            (g, lse, delta), (dq,))
+    dq, = _launch("prefix_attn_bwd_dq", q, k, v, kmask, pk, pv, pmask, nh,
+                  (g, lse, delta), ("stream",))
     prefix_attn_bwd_dq.launches += 1
     return dq
 
@@ -268,11 +297,10 @@ def prefix_attn_bwd_dkv(q, k, v, kmask, pk, pv, pmask, g, lse, delta, nh):
     if q.device.type == "cpu":
         return prefix_attn_bwd_dkv_plain(q, k, v, kmask, pk, pv, pmask, g,
                                          lse, delta, nh)
-    outs = [torch.empty(q.shape, device=q.device) for _ in range(2)]
-    if pk is not None:
-        outs += [torch.empty(pk.shape, device=q.device) for _ in range(2)]
-    _launch("prefix_attn_bwd_dkv", q, k, v, kmask, pk, pv, pmask, nh,
-            (g, lse, delta), outs + [None] * (4 - len(outs)))
+    kinds = ("stream", "stream") + (() if pk is None else
+                                    ("prefix", "prefix"))
+    outs = _launch("prefix_attn_bwd_dkv", q, k, v, kmask, pk, pv, pmask, nh,
+                   (g, lse, delta), kinds)
     prefix_attn_bwd_dkv.launches += 1
     return tuple(outs)
 

@@ -1,10 +1,14 @@
 """Few-shot generation: support-primed top-k / nucleus sampling.
 
-Port of ``fewshot/sampling.py`` without the cache head, the grammar masks
-and the finetune variant: ``filtered_sample``, the decode loop,
-``sample_lstm``, ``sample_transformer`` (the support prefix prefilled into
-a KV cache through the prefix-attention kernels, then one cached step per
-token) and ``generate``.  Semantics are the JAX package's:
+Port of ``fewshot/sampling.py`` without the grammar masks and the finetune
+variant: ``filtered_sample``, the decode loop, ``sample_lstm``,
+``sample_transformer`` (the support prefix prefilled into a KV cache
+through the prefix-attention kernels, then one cached step per token) and
+``generate``.  With the cache head (``support_cache``) every step samples
+from the same gated mixture the model is scored under: the static cache's
+support posterior, or (``cache_dynamic``) that posterior with the row's
+own emitted tokens counted in, as the continuous-cache NLL counts the
+query's prefix.  Semantics are the JAX package's:
 
   * temperature scales the logits BEFORE top-k truncation;
   * top_k == 0 means full ancestral sampling; 0 < top_p < 1 also applies
@@ -32,20 +36,6 @@ from fewshot_torch.models import transformer as tfm_mod
 # (each test waits for the device); rows that finished emit PAD meanwhile,
 # so the output is the same as testing every token.
 EXIT_CHECK_EVERY = 8
-
-
-def check_servable(cfg) -> None:
-    """Raise for configurations the port cannot sample from yet: those
-    that ``lm.check_supported`` refuses, and the cache head, whose mixture
-    over the support counts the decode loop does not build yet (a later
-    slice).  Training and evaluation take the cache head."""
-    lm_mod.check_supported(cfg)
-    if cfg.support_cache:
-        raise NotImplementedError(
-            "sampling and serving with support_cache=True (the cache "
-            "head's mixture in the decode loop) are not ported yet (a later "
-            "slice); train and evaluate such a model with fewshot_torch."
-            "training")
 
 
 def row_generator(seed: int, stream: int,
@@ -98,10 +88,45 @@ def filtered_sample(noise: torch.Tensor, logits: torch.Tensor, temperature,
                         + noise, dim=-1)
 
 
+def _cache_ctx(params, support: torch.Tensor, support_len: torch.Tensor,
+               cfg):
+    """None, or the cache head's context for the decode loop: ("static",
+    the [B, V] support log-posterior) or, with cfg.cache_dynamic,
+    ("dynamic", phi, total, s, p_global), the posterior's parts, to which
+    the loop adds the row's emitted-token counts each step."""
+    if not cfg.support_cache:
+        return None
+    v = params.out_b.shape[0]
+    if cfg.cache_dynamic:
+        return ("dynamic",) + tuple(lm_mod.cache_posterior_parts(
+            params, support, support_len, v))
+    return ("static", lm_mod.support_log_cache(params, support, support_len,
+                                               v))
+
+
+def _dynamic_log_cache(ctx, c_pre: torch.Tensor, n_pre: torch.Tensor
+                       ) -> torch.Tensor:
+    """[B, V] log-posterior with the emitted counts c_pre [B, V] and their
+    total n_pre [B, 1] added to the support's."""
+    _, phi, total, s, p_global = ctx
+    return (torch.log(phi + c_pre + s * p_global[None])
+            - torch.log(total + n_pre + s))
+
+
+def _count_emitted(c_pre: torch.Tensor, n_pre: torch.Tensor,
+                   nxt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Add the just-emitted tokens [B] to the carried counts; a finished
+    row emits PAD, which is a real id and must not count."""
+    live = (nxt != PAD).float()
+    c_pre = c_pre.scatter_add(1, nxt[:, None], live[:, None])
+    return c_pre, n_pre + live[:, None]
+
+
 def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
-            temperature, early_exit: bool) -> torch.Tensor:
+            temperature, early_exit: bool, ctx=None) -> torch.Tensor:
     """The decode loop from BOS: step(tok [B], i) -> top hidden [B, D] of
-    position i.  Returns tokens [B, n_tokens], PAD after a row's EOS."""
+    position i; ctx: the cache head's context (``_cache_ctx``) or None.
+    Returns tokens [B, n_tokens], PAD after a row's EOS."""
     if len(generators) != b:
         raise ValueError(f"need one generator per row ({b}), got "
                          f"{len(generators)}")
@@ -109,18 +134,31 @@ def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
             if temperature is None
             else torch.as_tensor(temperature, dtype=torch.float32,
                                  device=dev).expand(b))
-    noise = gumbel_noise(generators, n_tokens, params.out_b.shape[0], dev)
+    vocab = params.out_b.shape[0]
+    noise = gumbel_noise(generators, n_tokens, vocab, dev)
     tok = torch.full((b,), BOS, dtype=torch.int64, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     toks = torch.full((b, n_tokens), PAD, dtype=torch.int64, device=dev)
+    dynamic = ctx is not None and ctx[0] == "dynamic"
+    if dynamic:
+        c_pre = torch.zeros((b, vocab), device=dev)
+        n_pre = torch.zeros((b, 1), device=dev)
     for i in range(n_tokens):
         if early_exit and i and i % EXIT_CHECK_EVERY == 0 \
                 and bool(done.all()):
             break
-        logits = lm_mod.head_logits(params, step(tok, i), cfg)
+        h = step(tok, i)
+        logits = lm_mod.head_logits(params, h, cfg)
+        if ctx is not None:
+            # sample from the same mixture the NLL scores
+            log_cache = (_dynamic_log_cache(ctx, c_pre, n_pre) if dynamic
+                         else ctx[1])
+            logits = lm_mod.cache_mixed_logp(params, logits, h, log_cache)
         nxt = filtered_sample(noise[i], logits, temp, cfg.top_k, cfg.top_p)
         nxt = nxt.masked_fill(done, PAD)
         done = done | (nxt == EOS)
+        if dynamic:
+            c_pre, n_pre = _count_emitted(c_pre, n_pre, nxt)
         toks[:, i] = nxt
         tok = nxt
     return toks
@@ -145,7 +183,8 @@ def sample_lstm(params, support: torch.Tensor, support_len: torch.Tensor,
                                       state, dt)
         return h
     return _decode(params, step, b, dev, generators, cfg, n_tokens,
-                   temperature, early_exit)
+                   temperature, early_exit,
+                   _cache_ctx(params, support, support_len, cfg))
 
 
 def sample_transformer(params, support: torch.Tensor,
@@ -165,7 +204,8 @@ def sample_transformer(params, support: torch.Tensor,
                                         prefix_len + i, cfg)
         return h
     return _decode(params, step, support.shape[0], support.device,
-                   generators, cfg, n_tokens, temperature, early_exit)
+                   generators, cfg, n_tokens, temperature, early_exit,
+                   _cache_ctx(params, support, support_len, cfg))
 
 
 def prefix_cache(params, support: torch.Tensor, support_len: torch.Tensor,
@@ -196,7 +236,7 @@ def generate(params, support: torch.Tensor, support_len: torch.Tensor,
     i's continuation depends only on generators[i].  temperature: optional
     scalar or [B] overriding cfg.temperature.  early_exit stops once every
     row has emitted EOS; the output is the same either way."""
-    check_servable(cfg)
+    lm_mod.check_supported(cfg)
     n = n_tokens if n_tokens is not None else cfg.sample_tokens
     fn = sample_lstm if cfg.model == "lstm" else sample_transformer
     with torch.inference_mode():

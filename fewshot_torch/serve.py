@@ -18,21 +18,22 @@ so health checks never wait behind generation.  Each row's episode and
 noise come from generators seeded by the row's own seed, so a request's
 output does not depend on what it was batched with.
 
+Models with the cache head (``support_cache``) sample from its mixture.
 Run: ``python -m fewshot_torch.serve --data … --model … --task …
-[--checkpt_dir DIR] [--serve_batch N] [--device cuda|cpu] [--set K=V …]``.
-MIDI grammar masks and multi-GPU serving are later slices of the port.
+[--checkpt_dir DIR] [--serve_batch N] [--device cuda|cpu] [--set K=V …]``;
+DIR is a training run's checkpoint directory (its latest step is served)
+or a directory holding a bare ``params.npz``.  MIDI grammar masks and
+multi-GPU serving are later slices of the port.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
 import queue
 import sys
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from pathlib import Path
 
 import numpy as np
 import torch
@@ -72,7 +73,7 @@ class Generator:
                  batch_deadline_ms: float = 5.0,
                  device: torch.device | str | None = None):
         self.device = resolve_device(device)
-        sampling_mod.check_servable(cfg)
+        lm_mod.check_supported(cfg)
         if cfg.dataset == "midi":
             raise NotImplementedError(
                 "MIDI serving (grammar masks) is not ported yet")
@@ -287,38 +288,24 @@ def serve(gen: Generator, host: str = "127.0.0.1", port: int = 8476
 
 
 def serve_main(argv=None) -> None:
-    from fewshot_torch.bridge import load_params
-    from fewshot_torch.config import (add_config_flags, load_config,
-                                      parse_overrides)
-    from fewshot_torch.data.corpus import PackedCorpus
+    from fewshot_torch.cli import _setup
+    from fewshot_torch.utils.ckpt import hparams_of, restore_params
 
-    parser = argparse.ArgumentParser()
-    add_config_flags(parser)
-    parser.add_argument("--host", default="127.0.0.1")
-    parser.add_argument("--port", type=int, default=8476)
-    parser.add_argument("--serve_batch", type=int, default=None)
-    parser.add_argument("--device", default=None,
-                        help="torch device (default: cuda)")
-    args = parser.parse_args(argv)
-    cfg = load_config(args.data, args.model, args.task,
-                      parse_overrides(args.set))
-    corpus_dir = Path(cfg.corpus_dir)
-    if not (corpus_dir / "corpus.npz").exists():
-        sys.exit(f"no packed corpus at {corpus_dir} — run "
-                 f"scripts/prepare_data.py first (see README)")
-    corpus = PackedCorpus.load(corpus_dir)
-    if corpus.max_len != cfg.max_len:
-        print(f"warning: corpus max_len={corpus.max_len} != config "
-              f"max_len={cfg.max_len}; the packed corpus wins", flush=True)
-    if corpus.vocab is not None and len(corpus.vocab) > cfg.vocab_size:
-        sys.exit(f"corpus vocab ({len(corpus.vocab)}) exceeds config "
-                 f"vocab_size ({cfg.vocab_size}); re-pack or raise the cap")
+    def flags(p):
+        p.add_argument("--host", default="127.0.0.1")
+        p.add_argument("--port", type=int, default=8476)
+        p.add_argument("--serve_batch", type=int, default=None)
+    args, cfg, corpus = _setup(argv, flags)
     device = resolve_device(args.device)
     if args.checkpt_dir:
-        path = Path(args.checkpt_dir) / "params.npz"
-        if not path.exists():
+        # the latest step of a training run's directory, or a bare
+        # params.npz; another vocab raises, other semantic hparams warn
+        params = restore_params(
+            args.checkpt_dir, device,
+            corpus.vocab.content_hash() if corpus.vocab else "",
+            hparams_of(cfg))
+        if params is None:
             sys.exit(f"no checkpoint found in {args.checkpt_dir}")
-        params = load_params(path, device)
     else:
         params = lm_mod.init_lm(cfg, len(corpus.vocab),
                                 torch.Generator().manual_seed(cfg.seed),

@@ -310,22 +310,26 @@ def test_stack_function_refuses_eval_only_shape():
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16])
 def test_backward_hidden_limit(dt):
-    """The backward's 4H-deep contraction lowers its hidden-size limit below
-    the forward's; H=512 fits in both dtypes; train mode raises above the
-    limit (no fallback), while the forward alone still runs there."""
-    lim = lstm_layer.max_hidden_bwd(dt)
-    assert 512 <= lim < lstm_layer.max_hidden(dt)
-    hidden = (lim // 128 + 1) * 128
-    layer = LSTMLayer(torch.zeros(8, 4 * hidden),
-                      torch.zeros(hidden, 4 * hidden, requires_grad=True),
-                      torch.zeros(4 * hidden))
+    """No hidden-size limit remains: the step kernels walk the 4H-deep
+    contraction in chunks, so train mode runs at widths the whole-row stage
+    refused (fp32 H = 768, bf16 H = 1536), forward and backward, with no
+    switch to a plain step loop; the grads are finite and shaped."""
+    hidden = 768 if dt == torch.float32 else 1536
+    rng = np.random.RandomState(hidden)
+    layer = LSTMLayer(
+        torch.tensor(0.1 * rng.randn(8, 4 * hidden), dtype=torch.float32),
+        torch.tensor(0.02 * rng.randn(hidden, 4 * hidden),
+                     dtype=torch.float32).requires_grad_(True),
+        torch.zeros(4 * hidden))
     state = (torch.zeros(2, hidden), torch.zeros(2, hidden))
-    x = torch.zeros(2, 3, 8)
-    with pytest.raises(ValueError, match="backward kernels' limit"):
-        lstm_layer.lstm_layer_pallas(layer, x, None, state, dt)
-    with torch.no_grad():
-        ys, _ = lstm_layer.lstm_layer_pallas(layer, x, None, state, dt)
+    x = torch.tensor(rng.randn(2, 3, 8), dtype=torch.float32)
+    ys, _ = lstm_layer.lstm_layer_pallas(layer, x, None, state, dt)
     assert ys.shape == (2, 3, hidden)
+    ys.sum().backward()
+    assert layer.wh.grad.shape == (hidden, 4 * hidden)
+    assert bool(torch.isfinite(layer.wh.grad).all())
+    assert float(layer.wh.grad.abs().max()) > 0
+    assert not hasattr(lstm_layer, "max_hidden_bwd")
 
 
 # ---------------------------------------------------------------------------

@@ -238,8 +238,8 @@ def test_shift_targets_matches_jax():
                                     dict(support_mode="finetune")])
 def test_later_slices_raise(change):
     """The transformer's remat and finetune raise at init.  The cache head
-    trains and evaluates (init_lm builds its parameters), but sampling and
-    serving with it are a later slice and raise."""
+    trains, evaluates and now also generates and serves: the decode loop
+    samples from its mixture, static and dynamic."""
     cfg = dataclasses.replace(Config(**KW), **change)
     if not cfg.support_cache:
         with pytest.raises(NotImplementedError):
@@ -249,9 +249,27 @@ def test_later_slices_raise(change):
     assert {"cache_gate.w", "cache_gate.b", "cache_prior.u",
             "cache_prior.log_s"} <= {k for k, _ in params.named_parameters()}
     support = torch.full((2, 3, 8), 4)
-    with pytest.raises(NotImplementedError, match="serving"):
-        sampling.generate(params, support, torch.full((2, 3), 8),
-                          [torch.Generator() for _ in range(2)], cfg,
-                          n_tokens=4)
-    with pytest.raises(NotImplementedError, match="serving"):
-        serve.Generator(cfg, None, params, device="cpu")
+    for dynamic in (False, True):
+        toks = sampling.generate(
+            params, support, torch.full((2, 3), 8),
+            [torch.Generator().manual_seed(i) for i in range(2)],
+            dataclasses.replace(cfg, cache_dynamic=dynamic), n_tokens=4)
+        assert toks.shape == (2, 4) and toks.dtype == torch.int64
+        assert bool(((toks >= 0) & (toks < V)).all())
+    from fewshot_torch.data.corpus import PackedCorpus
+    from fewshot_torch.data.lyrics import tokenize_corpus
+    rows = [(f"a{a}", f"s{s}", " ".join(f"w{(a + s + i) % 9}"
+                                         for i in range(6)))
+            for a in range(3) for s in range(4)]
+    vocab, items = tokenize_corpus(rows, vocab_size=V)
+    corpus = PackedCorpus.pack(items, vocab, max_len=8, seed=0)
+    cfg = dataclasses.replace(cfg, max_len=8, cache_dynamic=True,
+                              sample_tokens=4, support_size=2)
+    params = lm.init_lm(cfg, len(vocab), torch.Generator().manual_seed(0),
+                        "cpu")
+    gen = serve.Generator(cfg, corpus, params, batch_size=2, device="cpu")
+    try:
+        outs = gen.generate(num=2, split="train", episode_seed=3)
+    finally:
+        gen.close()
+    assert len(outs) == 2 and all(0 < o["tokens"] <= 4 for o in outs)

@@ -262,8 +262,9 @@ def test_wrappers_check_devices_and_shapes():
     s_, t, e = 2, 5, 64
     q = torch.zeros(s_, t, e)
     mask = torch.ones(s_, t)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        pa.prefix_attn_fwd(q, q, q, mask, None, None, None, 8)   # hd = 8
+    # any head width runs (hd = 8: the CUDA wrapper pads it to 16)
+    out, lse = pa.prefix_attn_fwd(q, q, q, mask, None, None, None, 8)
+    assert out.shape == q.shape and lse.shape == (s_, 8, t)
     with pytest.raises(ValueError, match="bad shapes"):
         pa.prefix_attn_fwd(q, q, q, torch.ones(s_, t + 1), None, None, None,
                            2)
@@ -279,8 +280,7 @@ def test_wrappers_check_devices_and_shapes():
         pa.prefix_attn_fwd(meta, meta, meta, torch.ones(s_, t,
                                                         device="meta"),
                            None, None, None, 2)
-    with pytest.raises(ValueError, match="at most 128"):
-        pa.check_head_dim(256)
+    assert not hasattr(pa, "check_head_dim")     # no width limit remains
 
 
 # ---------------------------------------------------------------------------

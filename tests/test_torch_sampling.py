@@ -13,6 +13,12 @@
   about 10 in magnitude, and only summation order differs).
 * A row emits PAD after its EOS, early exit changes nothing, and a row's
   output does not depend on its batch neighbours.
+* The cache head in the decode loop (static and dynamic cache; the LSTM in
+  state and mean_state, the transformer in state; fp32, the same weights
+  through the bridge): ``cache_mixed_logp`` against JAX's within 1e-5;
+  ``_count_emitted`` skips PAD rows; fed JAX's greedy tokens, the port's
+  loop computes JAX's mixed log-probs at every step within 1e-4; its own
+  greedy tokens equal JAX's up to a row's first near tie.
 """
 
 import os
@@ -27,6 +33,7 @@ import pytest
 import torch
 
 from fewshot import sampling as jsampling
+from fewshot.config import Config as JConfig
 from fewshot_torch import sampling
 from fewshot_torch.bridge import params_from_numpy
 from fewshot_torch.config import Config
@@ -267,3 +274,185 @@ def test_row_depends_only_on_its_own_generator():
         [sampling.row_generator(s, 1) for s in seeds[::-1]], cfg,
         temperature=torch.tensor([0.9, 1.3, 0.7]))
     assert torch.equal(swapped[[2, 1, 0]], batched)
+
+
+# ---------------------------------------------------------------------------
+# the cache head in the decode loop
+# ---------------------------------------------------------------------------
+
+# (model, support_mode): the LSTM in both support modes and the transformer;
+# each with the static and the dynamic cache.  cell="scan" and the einsum
+# attention on both sides: the kernels' parity is held elsewhere, and the
+# JAX side then runs in this process without interpret mode.
+CACHE_CASES = [(m, mode, dyn) for m, mode in (("lstm", "state"),
+                                              ("lstm", "mean_state"),
+                                              ("transformer", "state"))
+               for dyn in (False, True)]
+CACHE_V, CACHE_L, CACHE_B, CACHE_N = 40, 12, 4, 10
+MIXED_TOL = 1e-4          # fp32, the same weights; only sum order differs
+GAP = 1e-3                # a top-two gap above this decides greedy tokens
+
+
+def _cache_cfg_kw(model, mode, dynamic):
+    return dict(model=model, vocab_size=CACHE_V, max_len=CACHE_L,
+                embed_dim=32, hidden_dim=64, num_layers=2, num_heads=2,
+                batch_size=CACHE_B, support_size=2, query_size=1,
+                cell="scan", prefix_flash=False, support_mode=mode,
+                compute_dtype="float32", top_k=1, sample_tokens=CACHE_N,
+                support_cache=True, cache_backoff="global", cache_calib=True,
+                cache_calib_freq=True, cache_dynamic=dynamic)
+
+
+def _cache_tree(cfg_kw, seed):
+    """JAX init plus noise on every leaf (the gate and the calibration
+    tables start at values that hide the mixture), as numpy."""
+    from fewshot.models import lm as jlm
+    from fewshot_torch.bridge import flatten, unflatten
+    tree = jlm.init_lm(jax.random.PRNGKey(seed), JConfig(**cfg_kw), CACHE_V)
+    rng = np.random.RandomState(seed)
+    flat = {k: np.asarray(v, np.float32) for k, v in flatten(
+        jax.tree.map(np.asarray, tree)).items()}
+    for k, v in flat.items():
+        flat[k] = (v + 0.3 * rng.randn(*v.shape)).astype(np.float32)
+    return unflatten(flat)
+
+
+def _jax_mixed_decode(tree, support, support_len, cfg):
+    """JAX's greedy decode with the cache head, step by step from the JAX
+    package's own pieces (sample_lstm / sample_transformer's one_step):
+    (tokens [B, n], mixed log-probs [n, B, V])."""
+    from fewshot.data.vocab import BOS as JBOS, EOS as JEOS, PAD as JPAD
+    from fewshot.models import lm as jlm, lstm as jlstm
+    from fewshot.models import transformer as jtfm
+    params = jax.tree.map(jnp.asarray, tree)
+    b, k_, l_ = support.shape
+    ctx = jsampling._cache_ctx(params, support, support_len, cfg)
+    dynamic = ctx[0] == "dynamic"
+    if cfg.model == "lstm":
+        state = jlm.support_state(params, support, support_len, cfg,
+                                  eval_mode=True)
+
+        def step(tok, i, state):
+            return jlstm.lstm_step(params["lstm"], jlm.embed(params, tok),
+                                   state, jnp.float32)
+    else:
+        prefix_len = k_ * l_
+        state = jtfm.init_kv_cache(cfg, b, prefix_len + cfg.sample_tokens
+                                   + 1)
+        mask = (jnp.arange(l_) < support_len[..., None]).reshape(
+            b, prefix_len)
+        state = jtfm.prefill(params["transformer"], jlm.embed(
+            params, support.reshape(b, prefix_len)), mask, state, cfg)
+
+        def step(tok, i, state):
+            return jtfm.transformer_step(params["transformer"],
+                                         jlm.embed(params, tok), state,
+                                         prefix_len + i, cfg)
+    tok = jnp.full((b,), JBOS, jnp.int32)
+    done = jnp.zeros((b,), bool)
+    c_pre = jnp.zeros((b, CACHE_V), jnp.float32)
+    n_pre = jnp.zeros((b, 1), jnp.float32)
+    toks, mixed = [], []
+    for i in range(cfg.sample_tokens):
+        h, state = step(tok, i, state)
+        logits = jlm.head_logits(params, h, cfg)
+        log_cache = (jsampling._dynamic_log_cache(ctx, c_pre, n_pre)
+                     if dynamic else ctx[1])
+        m = jlm.cache_mixed_logp(params, logits, h, log_cache)
+        mixed.append(np.asarray(m))
+        nxt = jnp.where(done, JPAD, jnp.argmax(m, axis=-1).astype(jnp.int32))
+        done = done | (nxt == JEOS)
+        if dynamic:
+            c_pre, n_pre = jsampling._count_emitted(c_pre, n_pre, nxt)
+        toks.append(np.asarray(nxt))
+        tok = nxt
+    return np.stack(toks, axis=1), np.stack(mixed)
+
+
+@pytest.fixture(scope="module", params=CACHE_CASES,
+                ids=["-".join(map(str, c)) for c in CACHE_CASES])
+def cache_decode(request):
+    model, mode, dynamic = request.param
+    kw = _cache_cfg_kw(model, mode, dynamic)
+    tree = _cache_tree(kw, seed=3)
+    rng = np.random.RandomState(11)
+    support_len = rng.randint(3, CACHE_L + 1, (CACHE_B, 2))
+    support = (rng.randint(3, CACHE_V, (CACHE_B, 2, CACHE_L))
+               * (np.arange(CACHE_L) < support_len[..., None]))
+    jcfg = JConfig(**kw)
+    toks, mixed = _jax_mixed_decode(tree, jnp.asarray(support, jnp.int32),
+                                    jnp.asarray(support_len, jnp.int32),
+                                    jcfg)
+    # the reconstruction is JAX's own greedy decode
+    ref = jsampling.generate(jax.tree.map(jnp.asarray, tree),
+                             jnp.asarray(support, jnp.int32),
+                             jnp.asarray(support_len, jnp.int32),
+                             jax.random.PRNGKey(0), jcfg, early_exit=False)
+    np.testing.assert_array_equal(np.asarray(ref), toks)
+    return kw, tree, support, support_len, toks, mixed
+
+
+def test_cache_mixed_logp_matches_jax():
+    from fewshot.models import lm as jlm
+    kw = _cache_cfg_kw("lstm", "state", False)
+    tree = _cache_tree(kw, seed=5)
+    rng = np.random.RandomState(2)
+    logits = rng.randn(3, 7, CACHE_V).astype(np.float32) * 3
+    hidden = rng.randn(3, 7, 64).astype(np.float32)
+    log_cache = np.log(rng.dirichlet(np.ones(CACHE_V), (3, 7))).astype(
+        np.float32)
+    want = jlm.cache_mixed_logp(jax.tree.map(jnp.asarray, tree),
+                                jnp.asarray(logits), jnp.asarray(hidden),
+                                jnp.asarray(log_cache))
+    got = lm.cache_mixed_logp(params_from_numpy(tree, "cpu"),
+                              torch.tensor(logits), torch.tensor(hidden),
+                              torch.tensor(log_cache))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(torch.logsumexp(got, -1).detach().numpy(),
+                               0.0, atol=1e-5)
+
+
+def test_count_emitted_skips_pad_rows():
+    c = torch.zeros(3, 6)
+    n = torch.zeros(3, 1)
+    for nxt in ([2, PAD, 5], [2, 4, PAD], [PAD, PAD, 5]):
+        c, n = sampling._count_emitted(c, n, torch.tensor(nxt))
+    want = torch.zeros(3, 6)
+    want[0, 2] = 2
+    want[1, 4] = 1
+    want[2, 5] = 2
+    assert torch.equal(c, want)
+    assert n[:, 0].tolist() == [2.0, 1.0, 2.0]
+
+
+def test_cache_head_decode_matches_jax(cache_decode, monkeypatch):
+    """Fed JAX's greedy tokens, the port's decode loop samples from the
+    same mixed log-probs at every step (1e-4, fp32); unpatched, its greedy
+    tokens equal JAX's at every step until a row's top-two gap first falls
+    to 1e-3 (a near tie may then break either way)."""
+    kw, tree, support, support_len, jtoks, jmixed = cache_decode
+    cfg = Config(**kw)
+    params = params_from_numpy(tree, "cpu")
+    sup = torch.tensor(support, dtype=torch.int64)
+    slen = torch.tensor(support_len, dtype=torch.int64)
+    gens = [torch.Generator().manual_seed(i) for i in range(CACHE_B)]
+    got = sampling.generate(params, sup, slen, gens, cfg, early_exit=False)
+    top2 = np.sort(jmixed, axis=-1)[..., -2:]
+    gap = top2[..., 1] - top2[..., 0]                    # [n, B]
+    for r in range(CACHE_B):
+        small = np.nonzero(gap[:, r] <= GAP)[0]
+        upto = small[0] + 1 if len(small) else CACHE_N
+        np.testing.assert_array_equal(got[r, :upto].numpy(),
+                                      jtoks[r, :upto])
+    seen = []
+
+    def forced(noise, logits, temperature, top_k, top_p=0.0):
+        seen.append(logits.clone())
+        return torch.tensor(jtoks[:, len(seen) - 1], dtype=torch.int64)
+    monkeypatch.setattr(sampling, "filtered_sample", forced)
+    toks = sampling.generate(params, sup, slen, gens, cfg, early_exit=False)
+    np.testing.assert_array_equal(toks.numpy(), jtoks)
+    assert len(seen) == CACHE_N
+    np.testing.assert_allclose(torch.stack(seen).numpy(), jmixed, rtol=0,
+                               atol=MIXED_TOL)
