@@ -88,7 +88,9 @@ Phases, each of which exits non-zero on failure:
      stream's 2 layers, the prefix stream's first: the last layer's prefix
      tail is dead) and the head+CE kernels' one; one step's grads against
      the plain route (einsum attention, dense head); the validation NLL
-     before and after, and the floor;
+     before and after, and the floor; the trained model's val NLL on the
+     same episodes through the bf16 plain route and the fp32 plain route
+     (the referee), recorded;
  12. serving phase C, the shipped transformer
      (configs/model/transformer.yaml: 4 layers, support_mode=state, batch
      16) on the bench corpus: the KV cache prefilled through the forward
@@ -105,31 +107,58 @@ Phases, each of which exits non-zero on failure:
  15. the flagship cache recipe through the train CLI
      (``fewshot_torch.cli train --data configs/data/lyrics.yaml --model
      configs/model/lstm_pallas.yaml --task
-     configs/task/episodic_cache.yaml``) on the V=5000 corpus: 1000 steps
+     configs/task/episodic_cache.yaml``) on the V=5000 corpus: 500 steps
      in this process (kernels 3-4 on their persistent route, 2 backward
      launches a step; kernel 6 once a step), the parameters its checkpoint
      restores bit-identical to those saved, then ``python -m
-     fewshot_torch.cli`` resumes to the recipe's 2000 steps ("restored
-     checkpoint at step 1000"); the loss falls, val NLL every 200 steps,
-     the final val NLL beside the unigram floor; then served from the
-     checkpoint (21 requests, serve batch 16) with the dynamic cache head:
+     fewshot_torch.cli`` resumes to 1000 steps (cut from the recipe's
+     2000; "restored checkpoint at step 500"); the loss falls, val NLL
+     every 200 steps, the final val NLL beside the unigram floor; then
+     served from the checkpoint (14 requests, serve batch 16) with the
+     dynamic cache head:
      the first decode step's mixed log-probs against the plain route, each
      row's mixture normalised, the carried counts those of the emitted
      tokens; the same for configs/model/transformer.yaml (cell=pallas),
      200 steps (kernels 7-9 and 6 every step), its prefill on kernel 7;
- 16. the card line, a {"kernels": [...]} line, then the {"ok": true, ...}
+     each trained checkpoint's support pass (the LSTM's state, the
+     transformer's KV cache) through the bf16 kernel route, the same route
+     on the kernels' plain twins and the bf16 plain route against the fp32
+     plain route, layer by layer: the kernel route at most REFEREE_F times
+     as far from it as the twins, and the LSTM's state within
+     TRAINED_STATE_TOL of the plain route;
+ 16. the MIDI path (scripts/midi_scale.py's plain_cache_floor leg at its
+     published widths, 60 artists): synthetic .mid files (60-100 notes a
+     song), packed by ``cli prepare --midi_root`` into the event corpus
+     (V=204, L=400) and a 300-merge BPE corpus (two processes at once);
+     kernels 1-2 (bf16) at 160 rows x 400 and 399 steps and kernels 5-6 at
+     the two MIDI heads' shapes against their twins, timed beside cuDNN
+     and logsumexp, bit-identical on a second launch; then through the CLI
+     on configs/data/midi.yaml + configs/model/lstm.yaml +
+     episodic_cache.yaml (mean_state, cell=pallas, bf16, B=32, floor
+     0.25): 300 steps in this process (kernels 1-2 on their persistent
+     route only, 4 backward launches a step, the checkpoint restoring the
+     saved bits), ``make-eval-set`` on val, ``evaluate --eval_set
+     --also_split_eval --per_artist`` and ``--baseline unigram``,
+     ``sample --num 8`` (every .mid parsed back, notes counted), then
+     served (8 requests, batch 16) under the grammar masks (every
+     continuation whole SHIFT->PITCH->DUR->VEL groups) with the referee
+     gate of 15 at T=400; the BPE corpus 100 steps, evaluated per base
+     token, sampled into .mid files that parse;
+ 17. the card line, a {"kernels": [...]} line, then the {"ok": true, ...}
      line.
 
-Weights are random from a seed; the corpora (the bench corpus and the
-V=5000 scale corpus of scripts/scale_test.py) are synthetic, built offline
-in a temporary directory.  fp32 matmuls run in full fp32
+Weights are random from a seed; the corpora (the bench corpus, the
+V=5000 scale corpus of scripts/scale_test.py and the MIDI corpora) are
+synthetic, built offline in temporary directories.  fp32 matmuls run in full fp32
 (TF32 off for both matmul and cuDNN).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -167,6 +196,16 @@ STATE_TOL = 2e-2        # support state, kernel route vs plain route (bf16)
 # the unnormalised p, the einsum the normalised probs, 2^-9 each in bf16),
 # carried by the residual stream and rounded to bf16 (2^-8) on the way
 KV_TOL = 2e-2
+# a trained checkpoint's support pass (F written in PERF.md before the first
+# run that read it): against an fp32 referee (the plain route in fp32), the
+# bf16 kernel route may be at most REFEREE_F times as far as the same route
+# on the kernels' plain twins, in every layer (the transformer's K and V,
+# the LSTM's h and c, each relative to the referee's largest entry in the
+# layer; referee_check); and the trained LSTM's state, kernel route against
+# the bf16 plain route, within TRAINED_STATE_TOL of each layer's largest
+# |h| and |c|
+REFEREE_F = 2.0
+TRAINED_STATE_TOL = 2e-2
 # one train step's grads, kernel route vs the plain route (cell="scan",
 # autograd through the step loop), relative to each leaf's largest
 # magnitude: the routes round at different points in bf16 (kernels: bf16
@@ -204,8 +243,12 @@ ROUNDS = 3              # rounds of 7 requests per serving phase
 TRAIN_WARMUP, TRAIN_CALLS = 2, 4    # calls of steps_per_call steps
 
 
+T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """One progress line, after the seconds since the script started."""
+    print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1142,10 +1185,112 @@ def post(url: str, payload: dict) -> tuple[int, dict, float]:
         return resp.status, body, time.perf_counter() - t0
 
 
+def support_layers(params, ep, cfg) -> list:
+    """The served support pass, by layer: [K, V] of the transformer's
+    prefilled cache, or [h, c] of the LSTM's support state."""
+    from fewshot_torch import sampling
+    from fewshot_torch.models import lm
+    with torch.inference_mode():
+        if cfg.model == "transformer":
+            cache, _ = sampling.prefix_cache(params, ep.support,
+                                             ep.support_len, cfg, 0)
+            return [[cache["k"][l], cache["v"][l]]
+                    for l in range(cfg.num_layers)]
+        return [[h, c] for h, c in lm.support_state(
+            params, ep.support, ep.support_len, cfg, eval_mode=True)]
+
+
+def layer_rel_errs(got, want) -> list:
+    """Per layer: the largest error of its tensors, each relative to the
+    largest entry of want's."""
+    return [max(max_rel(g, w)[1] for g, w in zip(gl, wl))
+            for gl, wl in zip(got, want)]
+
+
+@contextlib.contextmanager
+def kernel_twins():
+    """The support pass's kernel wrappers replaced by their plain twins:
+    the kernel route's rounding points (the bf16 streams of the LSTM
+    kernels, p rounded in the attention) without its kernels."""
+    from fewshot_torch.ops import lstm_layer, lstm_stack, prefix_attention
+    swaps = [(lstm_layer, "lstm_layer_fwd", lstm_layer.lstm_layer_fwd_plain),
+             (lstm_stack, "lstm_stack_fwd", lstm_stack.lstm_stack_fwd_plain),
+             (prefix_attention, "prefix_attn_fwd",
+              prefix_attention.prefix_attn_fwd_plain)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, f in swaps:
+        setattr(m, n, f)
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def referee_check(label, cfg, params, ep) -> dict:
+    """A trained checkpoint's support pass against the fp32 plain route
+    (the referee), per layer, through three bf16 routes: the kernels, the
+    same route on the kernels' plain twins (their rounding points), and
+    the plain route (scan / einsum).  The kernel route may be at most
+    REFEREE_F times as far from the referee as its twins are, in every
+    layer; the plain route's distance is recorded beside them.  (The
+    twins, not the plain route, are the yardstick: the LSTM kernels take
+    layer 0's input projection as a bf16 stream, as JAX's Pallas route
+    does, fewshot/ops/lstm_fused.py:419, a rounding the scan route does
+    not make, which put the kernel route up to 2.02x the scan route's
+    distance while it matched its twins' to five digits.)"""
+    ref = support_layers(params, ep, dataclasses.replace(
+        plain_route(cfg), compute_dtype="float32"))
+    kern = layer_rel_errs(support_layers(params, ep, cfg), ref)
+    plain = layer_rel_errs(support_layers(params, ep, plain_route(cfg)), ref)
+    with kernel_twins():
+        twin = layer_rel_errs(support_layers(params, ep, cfg), ref)
+
+    def ratios(num, den):
+        return [n / d if d > 0 else (0.0 if n == 0 else float("inf"))
+                for n, d in zip(num, den)]
+    rec = {"kernel_rel_err_vs_fp32": kern, "twin_rel_err_vs_fp32": twin,
+           "plain_rel_err_vs_fp32": plain, "ratio": ratios(kern, twin),
+           "ratio_vs_plain": ratios(kern, plain), "factor": REFEREE_F}
+    rec["ok"] = all(r <= REFEREE_F for r in rec["ratio"])
+    log(f"  {label} fp32 referee, by layer: {json.dumps(rec)}")
+    if not rec["ok"]:
+        raise RuntimeError(f"{label}: the kernel route's support pass is "
+                           f"more than {REFEREE_F}x as far from the fp32 "
+                           f"referee as its twins': {rec}")
+    return rec
+
+
+def check_reply(label, cfg, payload, status, body) -> int:
+    """One /generate reply's continuations well formed (MIDI: whole note
+    groups in SHIFT->PITCH->DUR->VEL order, each decoded into a note);
+    returns the tokens they hold."""
+    outs = body.get("continuations", [])
+    if status != 200 or len(outs) != payload["num"]:
+        raise RuntimeError(f"{label}: bad reply {status} {body}")
+    tokens = 0
+    for rec in outs:
+        if not 0 <= rec["tokens"] <= cfg.sample_tokens:
+            raise RuntimeError(f"{label}: malformed continuation {rec}")
+        if cfg.dataset == "midi":
+            kinds = [e.split("_")[0] for e in rec.get("events", [])]
+            groups = len(kinds) // 4
+            if len(kinds) % 4 or rec.get("notes") != groups or kinds != \
+                    ["SHIFT", "PITCH", "DUR", "VEL"] * groups:
+                raise RuntimeError(f"{label}: events off the grammar {rec}")
+        elif not isinstance(rec.get("text"), str):
+            raise RuntimeError(f"{label}: malformed continuation {rec}")
+        if "artist" in payload and rec["artist"] != payload["artist"]:
+            raise RuntimeError(f"{label}: wrong artist {rec}")
+        tokens += rec["tokens"]
+    return tokens
+
+
 def serving_phase(label, cfg, corpus, dev, counter, persistent=(),
-                  params=None) -> dict:
+                  params=None, requests=7 * ROUNDS) -> dict:
     """POST /generate requests to a live server of cfg (random weights from
-    cfg.seed unless params are given: a trained checkpoint's)."""
+    cfg.seed unless params are given: a trained checkpoint's), 4 at once
+    then 3 in turn, in rounds of 7."""
     from fewshot_torch.models import lm
     from fewshot_torch.serve import Generator, serve
 
@@ -1167,7 +1312,7 @@ def serving_phase(label, cfg, corpus, dev, counter, persistent=(),
             raise RuntimeError(f"{label}: bad /healthz {health}")
         name = corpus.artist_names[5]
         payloads = []
-        for rnd in range(ROUNDS):
+        for rnd in range(-(-requests // 7)):
             payloads += [{"num": 4, "split": "train",
                           "episode_seed": 10 * rnd + i, "temperature": t}
                          for i, t in enumerate((0.7, 1.0, 1.2, 0.9))]
@@ -1177,9 +1322,10 @@ def serving_phase(label, cfg, corpus, dev, counter, persistent=(),
                           "episode_seed": 99 + rnd},
                          {"num": 1, "split": "val", "episode_seed": 5 + rnd,
                           "temperature": 0.5}]
+        payloads = payloads[:requests]
         t0 = time.perf_counter()
         results = []
-        for rnd in range(ROUNDS):          # 4 concurrent, then 3 in turn
+        for rnd in range(-(-requests // 7)):   # 4 concurrent, 3 in turn
             batch = payloads[7 * rnd:7 * rnd + 7]
             with futures.ThreadPoolExecutor(max_workers=4) as ex:
                 results += list(ex.map(lambda p: post(url, p), batch[:4]))
@@ -1191,25 +1337,17 @@ def serving_phase(label, cfg, corpus, dev, counter, persistent=(),
     launches = {n: fn.launches for n, fn in kernel_counters.items()}
     routes = route_counts(kernel_counters, persistent, label)
 
-    tokens = 0
-    for payload, (status, body, _) in zip(payloads, results):
-        outs = body.get("continuations", [])
-        if status != 200 or len(outs) != payload["num"]:
-            raise RuntimeError(f"{label}: bad reply {status} {body}")
-        for rec in outs:
-            if not isinstance(rec.get("text"), str) or \
-                    not 0 <= rec["tokens"] <= cfg.sample_tokens:
-                raise RuntimeError(f"{label}: malformed continuation {rec}")
-            if "artist" in payload and rec["artist"] != payload["artist"]:
-                raise RuntimeError(f"{label}: wrong artist {rec}")
-            tokens += rec["tokens"]
+    tokens = sum(check_reply(label, cfg, payload, status, body)
+                 for payload, (status, body, _) in zip(payloads, results))
     if launches[counter] == 0:
         raise RuntimeError(f"{label}: {counter} never launched: {launches}")
 
     # the served support pass through the kernels against the plain route,
-    # on one batch of training-split episodes: the LSTM's support state
-    # (absolute), the transformer's prefilled KV cache (relative to its
-    # largest entry)
+    # on one batch of training-split episodes: random weights, the LSTM's
+    # support state (absolute), the transformer's prefilled KV cache
+    # (relative to its largest entry); trained weights, the routes against
+    # the fp32 referee (referee_check, REFEREE_F) and the LSTM's state
+    # relative to each layer's largest |h|, |c| (TRAINED_STATE_TOL)
     from fewshot_torch import sampling
     from fewshot_torch.data import episodes as eps
     ep = eps.sample_episode_for_artists(
@@ -1218,15 +1356,11 @@ def serving_phase(label, cfg, corpus, dev, counter, persistent=(),
                                             cfg.batch_size)),
         k=cfg.support_size, q=cfg.query_size)
 
-    def support(c=cfg):
-        with torch.inference_mode():
-            if c.model == "transformer":
-                cache, _ = sampling.prefix_cache(gen.params, ep.support,
-                                                 ep.support_len, c, 0)
-                return [cache["k"], cache["v"]]
-            return [x for hc in lm.support_state(
-                gen.params, ep.support, ep.support_len, c, eval_mode=True)
-                for x in hc]
+    def support(c=cfg):     # the cache's K and V whole, or h, c by layer
+        layers = support_layers(gen.params, ep, c)
+        if c.model == "transformer":
+            return [torch.stack([kv[i] for kv in layers]) for i in (0, 1)]
+        return [x for hc in layers for x in hc]
 
     want = support(plain_route(cfg))
     errs = [max_rel(a, b) for a, b in zip(support(), want)]
@@ -1237,12 +1371,18 @@ def serving_phase(label, cfg, corpus, dev, counter, persistent=(),
     log(f"  {label} support pass vs plain route: max abs "
         f"{max(e[0] for e in errs):.4g}, max rel {max(e[1] for e in errs):.4g}"
         f", largest entry {max(float(w.abs().max()) for w in want):.4g}")
-    # STATE_TOL and KV_TOL are set for the random weights of serving A-C; a
-    # trained model's state is held where it is served instead, at its
-    # first decode step's mixed log-probs (cache_decode_check), and its
-    # support pass error is recorded
-    if not trained and not state_err <= tol:
-        raise RuntimeError(f"{label}: support pass off by {state_err}")
+    referee = None
+    if not trained:
+        if not state_err <= tol:
+            raise RuntimeError(f"{label}: support pass off by {state_err}")
+    else:
+        referee = referee_check(label, cfg, gen.params, ep)
+        if cfg.model == "lstm":
+            trained_err = max(e[1] for e in errs)
+            if not trained_err <= TRAINED_STATE_TOL:
+                raise RuntimeError(f"{label}: trained support state off the "
+                                   f"plain route by {trained_err} of its "
+                                   f"largest entry")
 
     # where a batch's time goes: the support pass (kernels) against the
     # whole generate() call (support pass + token-by-token decode)
@@ -1270,6 +1410,7 @@ def serving_phase(label, cfg, corpus, dev, counter, persistent=(),
            "support_pass_rel_err_vs_plain": max(e[1] for e in errs),
            "support_pass_largest_entry": max(float(w.abs().max())
                                              for w in want),
+           "support_pass_referee": referee,
            "batch_support_ms": support_ms, "batch_generate_ms": generate_ms,
            "batch_device_busy_ms": busy_ms,
            "batch_device_idle_share": (None if busy_ms is None
@@ -1373,14 +1514,17 @@ def eval_phase(label, cfg, params, data, corpus, dev, persistent=()) -> dict:
 
 def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False,
                    per_step=None, per_eval_batch=None, persistent=(),
-                   warmup=TRAIN_WARMUP, calls=TRAIN_CALLS) -> dict:
+                   warmup=TRAIN_WARMUP, calls=TRAIN_CALLS,
+                   referee=False) -> dict:
     """The train step at cfg, dispatched steps_per_call steps per call as
     bench.py does: `warmup` warm-up calls, then `calls` timed calls.
     evaluate: also the val NLL before and after training (it must fall; the
     head+CE forward must launch and no backward kernel may) and the unigram
     floor.  per_step / per_eval_batch: {kernel: launches} the counters must
     show exactly; persistent: wrappers that must launch their persistent
-    kernel only (in training and evaluation)."""
+    kernel only (in training and evaluation); referee: also the trained
+    model's val NLL on the same episodes through the bf16 plain route and
+    the fp32 plain route (the referee), recorded beside the kernels'."""
     from fewshot_torch import training
     from fewshot_torch.data import episodes as eps
 
@@ -1483,6 +1627,17 @@ def training_phase(label, cfg, corpus, dev, must_rise, evaluate=False,
                     "launches_per_eval_batch": {
                         n: v / val_end["batches"]
                         for n, v in val_end["launches"].items()}})
+        if referee:
+            plain = plain_route(cfg)
+            nlls = {"kernels_bf16": val_end["nll"], "plain_bf16": eval_phase(
+                label, plain, state.params, data, corpus, dev)["nll"],
+                    "plain_fp32": eval_phase(
+                label, dataclasses.replace(plain, compute_dtype="float32"),
+                state.params, data, corpus, dev)["nll"]}
+            rec["val_nll_referee"] = {
+                **nlls, "kernels_minus_fp32": nlls["kernels_bf16"]
+                - nlls["plain_fp32"], "plain_minus_fp32": nlls["plain_bf16"]
+                - nlls["plain_fp32"]}
     log(f"{label}: {json.dumps(rec)}")
     return rec
 
@@ -1557,8 +1712,9 @@ MIXED_TOL = 2e-2        # first decode step's mixed log-probs vs the plain
 LSE_TOL = 1e-4          # each row's logsumexp of the mixture, about 0
 
 
-def cli_args(model_yaml, corpus_dir, ckpt_dir, sets) -> list:
-    return ["train", "--data", DATA_YAML, "--model", model_yaml,
+def cli_args(model_yaml, corpus_dir, ckpt_dir, sets,
+             data_yaml=DATA_YAML) -> list:
+    return ["train", "--data", data_yaml, "--model", model_yaml,
             "--task", TASK_YAML, "--checkpt_dir", str(ckpt_dir), "--set",
             f"corpus_dir={corpus_dir}", *sets]
 
@@ -1572,7 +1728,8 @@ def leg_metrics(ckpt_dir: Path) -> tuple[list, list]:
 
 
 def cli_leg(label, model_yaml, corpus, corpus_dir, ckpt_dir, sets, steps,
-            exact, dev, persistent=(), resume_steps=None) -> dict:
+            exact, dev, persistent=(), resume_steps=None,
+            data_yaml=DATA_YAML, loss_before=None) -> dict:
     """Train through ``fewshot_torch.cli train`` in this process (so that
     the kernels' counts can be read): `steps` steps from scratch; then, with
     resume_steps, the same command with max_steps=resume_steps in a new
@@ -1586,8 +1743,8 @@ def cli_leg(label, model_yaml, corpus, corpus_dir, ckpt_dir, sets, steps,
     from fewshot_torch.config import load_config, parse_overrides
     from fewshot_torch.utils import ckpt
     args = cli_args(model_yaml, corpus_dir, ckpt_dir,
-                    [*sets, f"max_steps={steps}"])
-    cfg = load_config(DATA_YAML, model_yaml, TASK_YAML, parse_overrides(
+                    [*sets, f"max_steps={steps}"], data_yaml=data_yaml)
+    cfg = load_config(data_yaml, model_yaml, TASK_YAML, parse_overrides(
         args[args.index("--set") + 1:]))
     saved = {}
     save = cli.save_checkpoint
@@ -1654,7 +1811,10 @@ def cli_leg(label, model_yaml, corpus, corpus_dir, ckpt_dir, sets, steps,
             [r["step"] for r in losses][-1] != last:
         raise RuntimeError(f"{label}: logged steps {[r['step'] for r in vals]}"
                            f" (val), {[r['step'] for r in losses][-3:]}")
-    first, final = losses[0]["loss"], losses[-1]["loss"]
+    # the loss falls from the first one logged, or from the untrained
+    # model's (loss_before), where the first log lands on a plateau
+    first = losses[0]["loss"] if loss_before is None else loss_before
+    final = losses[-1]["loss"]
     if not (np.isfinite(final) and final < first):
         raise RuntimeError(f"{label}: loss did not fall: {first} -> {final}")
     rec.update(cfg=cfg, params=state.params, loss_first=first,
@@ -1737,6 +1897,273 @@ def cache_decode_check(label, cfg, params, corpus, dev) -> dict:
     if not (first_err <= MIXED_TOL and lse_err <= LSE_TOL and counts_ok):
         raise RuntimeError(f"{label}: the cache head's decode is off: {rec}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# the MIDI path: the kernels at its shapes, then prepare, train, evaluate,
+# sample and serve through the CLI
+# ---------------------------------------------------------------------------
+
+MIDI_DATA_YAML = "configs/data/midi.yaml"
+MIDI_MODEL_YAML = "configs/model/lstm.yaml"
+# scripts/midi_scale.py:36-39, 179-188 (its plain_cache_floor leg): 24
+# songs an artist of 60-100 notes (~4 events a note), 300 BPE merges;
+# LSTM 512x2 on the per-layer kernels in bf16, B=32, the full cache stack
+# with the responsibility floor.  Cut: 60 artists, not 300 (the val and
+# test splits keep 6 each), 300 steps (100 on the BPE corpus), not a
+# converged run
+MIDI_ARTISTS, MIDI_SONGS, MIDI_NOTES, MIDI_MERGES = 60, 24, (60, 100), 300
+MIDI_STEPS, BPE_STEPS = 300, 100
+MIDI_SETS = ["support_mode=mean_state", "cell=pallas",
+             "compute_dtype=bfloat16", "batch_size=32",
+             "cache_resp_floor=0.25", "cache_calib_freq=false"]
+MIDI_SERVE_BATCH, MIDI_REQUESTS, MIDI_SAMPLES = 16, 8, 8
+
+
+def cli_run(label, args, timeout=900) -> str:
+    """``python -m fewshot_torch.cli <args>`` in a new process; its stdout.
+    Fails the run if the command does."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "fewshot_torch.cli", *map(str, args)],
+        capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{label}: {args[0]} failed:\n"
+                           f"{proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def printed(label, out: str, key: str) -> float:
+    """The value of the line ``key=<number> ...`` a command printed."""
+    m = re.search(rf"^{re.escape(key)}=(\S+)", out, re.M)
+    if m is None or not np.isfinite(float(m.group(1))):
+        raise RuntimeError(f"{label}: no finite {key} in:\n{out[-2000:]}")
+    return float(m.group(1))
+
+
+def midi_prepare(raw: Path, tmp: Path) -> dict:
+    """The synthetic MIDI files, then the plain and the BPE corpus packed
+    from them by ``cli prepare --midi_root`` (two processes at once)."""
+    from fewshot_torch.data.corpus import PackedCorpus
+    from fewshot_torch.data.synthetic import generate_midi_corpus
+    t0 = time.perf_counter()
+    generate_midi_corpus(raw, MIDI_ARTISTS, MIDI_SONGS, seed=0,
+                         notes_range=MIDI_NOTES)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with futures.ThreadPoolExecutor(2) as ex:
+        outs = list(ex.map(lambda a: cli_run("midi prepare", a), [
+            ["prepare", "--midi_root", raw, "--out", tmp / "midi",
+             "--max_len", 0],
+            ["prepare", "--midi_root", raw, "--out", tmp / "midi_bpe",
+             "--max_len", 0, "--bpe_merges", MIDI_MERGES]]))
+    plain, bpe = (PackedCorpus.load(tmp / "midi"),
+                  PackedCorpus.load(tmp / "midi_bpe"))
+    rec = {"artists": MIDI_ARTISTS, "songs": MIDI_SONGS,
+           "notes": list(MIDI_NOTES), "generate_s": gen_s,
+           "pack_both_s": time.perf_counter() - t0,
+           "files": sum(1 for _ in raw.rglob("*.mid")),
+           "vocab": len(plain.vocab), "max_len": plain.max_len,
+           "events": int(plain.song_len.sum()),
+           "bpe_vocab": len(bpe.vocab), "bpe_max_len": bpe.max_len,
+           "bpe_compression": float(bpe.song_len.sum())
+           / float(plain.song_len.sum()),
+           "splits": {k: len(v) for k, v in plain.splits.items()},
+           "printed": [o.strip() for o in outs]}
+    log(f"midi corpora: {json.dumps(rec)}")
+    if min(rec["splits"].values()) < 6:
+        raise RuntimeError(f"midi corpora: {rec}")
+    return {"rec": rec, "plain": plain, "bpe": bpe}
+
+
+def midi_kernel_phase(dev, t_: int, head_shapes) -> dict:
+    """Kernels 1-2 (bf16, H=512) at the MIDI leg's support and query passes
+    (160 rows x t_ and t_ - 1 steps: the persistent route) against their
+    twins, with cuDNN's call; kernels 3-4 at serving's support pass (80
+    rows x t_: at serve batch 16 the fused stack takes mean_state's
+    forward-only pass, as in the JAX package); and kernels 5-6 (bf16,
+    D=256) at the MIDI heads' (rows, vocab) shapes against theirs, with
+    torch.logsumexp: each timed, each bit-identical on a second launch.
+    (Neither MIDI head runs the fused kernels: V <= 1024 scores through
+    dense logits, as in the JAX package.)"""
+    from fewshot_torch.ops import lstm_layer as ll
+    gen = torch.Generator().manual_seed(4)
+    lim = (6.0 / (5 * H)) ** 0.5
+    dtype, rows, records = torch.bfloat16, 160, {}
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    def unif(*shape):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * lim).to(dev)
+    # kernel 3 alone: serving runs the forward only (kernel 4 is not on the
+    # MIDI path)
+    from fewshot_torch.ops import lstm_stack
+    srows = 5 * MIDI_SERVE_BATCH
+    mask = ragged_mask(gen, t_, srows, 1).to(dev)
+    sargs = (rand(t_, srows, 4 * H, scale=0.6).to(dtype),
+             unif(LAYERS - 1, H, 4 * H).to(dtype),
+             unif(LAYERS, H, 4 * H).to(dtype),
+             rand(LAYERS, 4 * H, scale=0.1), mask,
+             rand(LAYERS, srows, H, scale=0.5),
+             rand(LAYERS, srows, H, scale=0.5))
+    if not lstm_stack.stack_persistent_route(srows, H, LAYERS, dtype):
+        raise RuntimeError(f"kernel 3 at {srows} x {t_}: not on the "
+                           f"persistent route")
+    fwd = check_kernel(
+        "lstm_stack_fwd", lstm_stack.lstm_stack_fwd,
+        lstm_stack.lstm_stack_fwd_plain, sargs, FWD_TOL[dtype], False,
+        2.0 * float(mask.sum()) * H * 4 * H * (2 * LAYERS - 1), dtype,
+        lambda: cudnn_lstm_ms(sargs[2], sargs[3], t_, srows, E, LAYERS,
+                              dtype))
+    fwd["deterministic"] = same_bits(lambda: lstm_stack.lstm_stack_fwd(
+        *sargs))
+    if not fwd["deterministic"]:
+        raise RuntimeError(f"lstm_stack_fwd at T={t_} is not deterministic")
+    records[(f"midi_stack_t{t_}", dtype)] = fwd
+    for steps in (t_, t_ - 1):
+        mask = ragged_mask(gen, steps, rows, 1).to(dev)
+        live = float(mask.sum())
+        args = ((torch.randn((steps, rows, 4 * H), generator=gen) * 0.6)
+                .to(dev, dtype),
+                ((torch.rand((H, 4 * H), generator=gen) * 2 - 1) * lim)
+                .to(dev, dtype),
+                (torch.randn(4 * H, generator=gen) * 0.1).to(dev), mask,
+                (torch.randn((rows, H), generator=gen) * 0.5).to(dev),
+                (torch.randn((rows, H), generator=gen) * 0.5).to(dev))
+        if not ll.persistent_route(rows, H, dtype):
+            raise RuntimeError(f"kernels 1-2 at {rows} x {steps}: not on "
+                               f"the persistent route")
+        ops = 2.0 * live * H * 4 * H
+        fwd = check_kernel(
+            "lstm_layer_fwd", ll.lstm_layer_fwd, ll.lstm_layer_fwd_plain,
+            args, FWD_TOL[dtype], False, ops, dtype,
+            lambda: cudnn_lstm_ms(args[1], args[2], steps, rows, H, 1,
+                                  dtype))
+        with torch.no_grad():
+            _, cs, _, _, gates = ll.lstm_layer_fwd(*args, save_gates=True)
+        bargs = (gates, args[1], mask, cs, args[5],
+                 torch.randn((steps, rows, H), generator=gen).to(dev, dtype),
+                 torch.randn((rows, H), generator=gen).to(dev),
+                 torch.randn((rows, H), generator=gen).to(dev))
+        bwd = check_kernel(
+            "lstm_layer_bwd", ll.lstm_layer_bwd, ll.lstm_layer_bwd_plain,
+            bargs, [BWD_TOL[dtype]] * 4, True, ops, dtype,
+            lambda: cudnn_lstm_ms(args[1], args[2], steps, rows, H, 1, dtype,
+                                  backward=True))
+        for rec, fn in ((fwd, lambda: ll.lstm_layer_fwd(*args,
+                                                        save_gates=True)),
+                        (bwd, lambda: ll.lstm_layer_bwd(*bargs))):
+            rec["deterministic"] = same_bits(fn)
+            if not rec["deterministic"]:
+                raise RuntimeError(f"{rec['name']} at T={steps} is not "
+                                   f"deterministic")
+        records[(f"midi_layer_t{steps}", dtype)] = fwd
+        records[(f"midi_layer_bwd_t{steps}", dtype)] = bwd
+    for head_rows, vocab in head_shapes:
+        log(f"  head+CE kernels at {head_rows} x {HEAD_D} x {vocab}")
+        head_checks(*head_inputs(gen, dev, dtype, head_rows, HEAD_D, vocab),
+                    dtype, records, f"midi_head_v{vocab}")
+    return records
+
+
+def midi_outputs(label, out: str) -> dict:
+    """The ``.mid`` files ``cli sample`` wrote, each parsed back by the
+    port's SMF reader: {path: notes}.  Fails if one does not parse or none
+    holds a note."""
+    from fewshot_torch.data.midi import parse_midi
+    paths = re.findall(r"^wrote (\S+\.mid)$", out, re.M)
+    notes = {}
+    for p in paths:
+        try:
+            notes[Path(p).name] = len(parse_midi(p))
+        except Exception as e:                            # noqa: BLE001
+            raise RuntimeError(f"{label}: {p} does not parse: {e}")
+    if not paths or not sum(notes.values()):
+        raise RuntimeError(f"{label}: no notes in {notes}:\n{out[-2000:]}")
+    return notes
+
+
+def midi_leg(label, corpus, corpus_dir: Path, tmp: Path, sets, steps, dev,
+             samples: int, serve: bool) -> dict:
+    """Train through the CLI (kernels 1-2 on their persistent route only, 4
+    backward launches a step; the loss below the untrained model's val NLL)
+    while ``make-eval-set`` freezes a val episode set, then, three processes
+    at once, evaluate the checkpoint on that set and on random val episodes
+    (per artist), the unigram floor, and sample `samples` ``.mid`` files,
+    parsed back; with serve, serve the checkpoint under the grammar
+    masks."""
+    from fewshot_torch import training
+    from fewshot_torch.config import load_config, parse_overrides
+    from fewshot_torch.data import episodes as eps
+    layer_pair = ("lstm_layer_fwd", "lstm_layer_bwd")
+    ck = tmp / f"ck_{label}"
+    sets = [*sets, f"max_len={corpus.max_len}",
+            f"vocab_size={len(corpus.vocab)}"]
+    cfg = load_config(MIDI_DATA_YAML, MIDI_MODEL_YAML, TASK_YAML,
+                      parse_overrides([f"corpus_dir={corpus_dir}", *sets]))
+    untrained = eval_phase(label, cfg, training.init_train_state(
+        cfg, len(corpus.vocab), device=dev).params,
+        eps.put_corpus(corpus, dev), corpus, dev)["nll"]
+    eval_set = tmp / f"{label}_val.npz"
+
+    def cmd(command, *extra):
+        return [command, "--data", MIDI_DATA_YAML, "--model",
+                MIDI_MODEL_YAML, "--task", TASK_YAML, "--checkpt_dir", ck,
+                *extra, "--set", f"corpus_dir={corpus_dir}", *sets]
+    with futures.ThreadPoolExecutor(3) as ex:
+        frozen = ex.submit(cli_run, label, [
+            "make-eval-set", "--corpus", corpus_dir, "--split", "val",
+            "--episodes", EVAL_EPISODES // 2, "--k", 5, "--q", 5, "--out",
+            eval_set])
+        leg = cli_leg(label, MIDI_MODEL_YAML, corpus, corpus_dir, ck, sets,
+                      steps, exact={"lstm_layer_bwd": 2 * LAYERS}, dev=dev,
+                      persistent=layer_pair, data_yaml=MIDI_DATA_YAML,
+                      loss_before=untrained)
+        frozen.result()
+        t0 = time.perf_counter()
+        out, floor_out, sample_out = [f.result() for f in [ex.submit(
+            cli_run, label, c) for c in (
+            cmd("evaluate", "--split", "val", "--eval_set", eval_set,
+                "--also_split_eval", "--per_artist"),
+            cmd("evaluate", "--split", "val", "--baseline", "unigram"),
+            cmd("sample", "--split", "val", "--num", samples, "--out",
+                tmp / f"{label}_mid"))]]
+    artists = re.findall(r"^  artist (\S+): nll=(\S+)$", out, re.M)
+    rec = {"val_nll_untrained": untrained,
+           "eval_set_nll": printed(label, out, "eval_set_nll_per_token"),
+           "val_nll_random_episodes": printed(label, out,
+                                              "val_nll_per_token"),
+           "val_unigram_floor": printed(label, floor_out,
+                                        "val_nll_per_token"),
+           "per_artist_nll": {a: float(v) for a, v in artists},
+           "samples_notes": midi_outputs(label, sample_out),
+           "evaluate_sample_wall_s": time.perf_counter() - t0}
+    if corpus.merges:
+        rec["eval_set_nll_per_base_token"] = printed(
+            label, out, "eval_set_nll_per_base_token")
+        rec["val_nll_per_base_token"] = printed(label, out,
+                                                "val_nll_per_base_token")
+    if len(artists) != len(corpus.splits["val"]) or \
+            not rec["val_nll_random_episodes"] < untrained:
+        raise RuntimeError(f"{label}: evaluate: {rec}")
+    log(f"{label} evaluate / sample: {json.dumps(rec)}")
+    leg.update(rec)
+    if serve:
+        from fewshot_torch.ops import lstm_stack
+        cfg = dataclasses.replace(leg["cfg"], batch_size=MIDI_SERVE_BATCH)
+        # the served support pass is forward only: at this batch's rows
+        # the fused stack takes it (kernel 3), as in the JAX package
+        counter = "lstm_stack_fwd" if lstm_stack.stack_fused_supported(
+            leg["params"].lstm, torch.bfloat16,
+            batch_rows=cfg.batch_size * cfg.support_size,
+            eval_mode=True) else "lstm_layer_fwd"
+        srv = serving_phase(f"serving_{label}", cfg, corpus, dev, counter,
+                            persistent=(counter,), params=leg["params"],
+                            requests=MIDI_REQUESTS)
+        srv["cache_head"] = cache_decode_check(f"serving_{label}", cfg,
+                                               leg["params"], corpus, dev)
+        leg["serving"] = srv
+    return leg
 
 
 # the kernels whose bf16 route runs on tensor cores, by wrapper: (library,
@@ -1934,7 +2361,8 @@ def main() -> int:
         ("prefix_attn_fwd", "prefix_attn_bwd_dq", "prefix_attn_bwd_dkv",
          "head_ce_fwd", "head_ce_bwd"), evaluate=True,
         per_step={**attn_step, "head_ce_fwd": 1, "head_ce_bwd": 1},
-        per_eval_batch={"prefix_attn_fwd": 2 * LAYERS - 1, "head_ce_fwd": 1})
+        per_eval_batch={"prefix_attn_fwd": 2 * LAYERS - 1, "head_ce_fwd": 1},
+        referee=True)
     # configs/model/transformer.yaml + configs/task/episodic.yaml
     serve_c = serving_phase(
         "serving_C", dataclasses.replace(shipped, model="transformer",
@@ -1952,20 +2380,22 @@ def main() -> int:
             dev, {f"hd{hd}": attn_shapes["query"]}, hd=hd, seed=hd))
 
     # the flagship cache recipe (configs/task/episodic_cache.yaml) through
-    # the train CLI: the shipped LSTM 1000 steps, then resumed in a new
-    # process to the recipe's 2000; the shipped transformer 200 steps
+    # the train CLI: the shipped LSTM 500 steps, then resumed in a new
+    # process to 1000 (cut from the recipe's 2000 to make room for the MIDI
+    # path in the script's time); the shipped transformer 200 steps
     # (cell=pallas, as scripts/scale_quality.py:58 sets for every leg);
     # each served from its checkpoint with the dynamic cache head
     corpus_dir = tmp / "scale_lyrics"
     sets = [f"max_len={scale.max_len}"]
     lstm_leg = cli_leg(
         "cli_lstm_leg", LSTM_YAML, scale, corpus_dir, tmp / "ck_lstm", sets,
-        1000, exact={"lstm_stack_bwd": 2, "head_ce_bwd": 1}, dev=dev,
-        persistent=stack_pair, resume_steps=2000)
+        500, exact={"lstm_stack_bwd": 2, "head_ce_bwd": 1}, dev=dev,
+        persistent=stack_pair, resume_steps=1000)
     lstm_leg.update(leg_floor("cli_lstm_leg", lstm_leg, scale, dev))
     serve_lstm = serving_phase(
         "serving_cli_lstm", lstm_leg["cfg"], scale, dev, "lstm_stack_fwd",
-        persistent=("lstm_stack_fwd",), params=lstm_leg["params"])
+        persistent=("lstm_stack_fwd",), params=lstm_leg["params"],
+        requests=14)
     serve_lstm["cache_head"] = cache_decode_check(
         "serving_cli_lstm", lstm_leg["cfg"], lstm_leg["params"], scale, dev)
     tfm_layers = 4                  # configs/model/transformer.yaml
@@ -1978,7 +2408,7 @@ def main() -> int:
     tfm_leg.update(leg_floor("cli_transformer_leg", tfm_leg, scale, dev))
     serve_tfm = serving_phase(
         "serving_cli_transformer", tfm_leg["cfg"], scale, dev,
-        "prefix_attn_fwd", params=tfm_leg["params"])
+        "prefix_attn_fwd", params=tfm_leg["params"], requests=14)
     serve_tfm["cache_head"] = cache_decode_check(
         "serving_cli_transformer", tfm_leg["cfg"], tfm_leg["params"], scale,
         dev)
@@ -1994,6 +2424,41 @@ def main() -> int:
                 "batch_device_busy_ms", "batch_device_idle_share",
                 "launches", "cache_head")}}
         log(f"leg {name}: {json.dumps(legs[name])}")
+
+    # the MIDI path (scripts/midi_scale.py's plain_cache_floor leg, cut to
+    # 60 artists and 300 steps): the corpora through cli prepare, the
+    # kernels at its shapes, then the plain-event leg (trained, evaluated,
+    # sampled, served under the grammar masks) and the BPE leg (trained,
+    # evaluated per base token, sampled and expanded)
+    with tempfile.TemporaryDirectory() as midi_tmp:
+        tmp = Path(midi_tmp)
+        corpora = midi_prepare(tmp / "midi_raw", tmp)
+        midi, bpe = corpora["plain"], corpora["bpe"]
+        heads = [(32 * 5 * (c.max_len - 1), len(c.vocab)) for c in (midi,
+                                                                   bpe)]
+        log(f"MIDI shapes: kernels 1-2 at 160 x {midi.max_len} and x "
+            f"{midi.max_len - 1}; kernels 5-6 at {heads} (x {HEAD_D})")
+        records.update(midi_kernel_phase(dev, midi.max_len, heads))
+        midi_legs = {
+            "midi": midi_leg("cli_midi_leg", midi, tmp / "midi", tmp,
+                             MIDI_SETS, MIDI_STEPS, dev, MIDI_SAMPLES,
+                             serve=True),
+            "midi_bpe": midi_leg("cli_midi_bpe_leg", bpe, tmp / "midi_bpe",
+                                 tmp, MIDI_SETS, BPE_STEPS, dev, 4,
+                                 serve=False)}
+    for name, leg in midi_legs.items():
+        srv = leg.pop("serving", None)
+        legs[name] = {k: v for k, v in leg.items()
+                      if k not in ("cfg", "params")}
+        if srv is not None:
+            legs[name]["serving"] = {k: srv[k] for k in (
+                "requests", "p50_latency_s", "max_latency_s", "tokens_per_s",
+                "generated_tokens", "batch_generate_ms",
+                "batch_device_busy_ms", "batch_device_idle_share",
+                "launches", "launches_per_batch", "support_pass_referee",
+                "support_pass_rel_err_vs_plain", "cache_head")}
+        log(f"leg {name}: {json.dumps(legs[name])}")
+    legs["midi"]["corpora"] = corpora["rec"]
 
     meta = {  # key, csrc source, TPU kernel, the slice's path, serving path
         "lstm_layer_fwd": ("layer", "lstm_fwd.cu",
@@ -2109,6 +2574,22 @@ def main() -> int:
                           for hd in WIDE_HD])
         rec["launches_cli_legs"] = {
             leg: legs[leg]["launches"][name] for leg in legs}
+        midi_keys = ([f"midi_layer{key[5:]}_t{t}" for t in (
+            midi.max_len, midi.max_len - 1)] if key.startswith("layer")
+            else [f"midi_stack_t{midi.max_len}"] if key == "stack"
+            else [f"midi_head_v{v}_{key[5:]}" for v in (len(midi.vocab),
+                                                        len(bpe.vocab))]
+            if key.startswith("head_") else [])
+        if midi_keys:        # kernels 1-3 and 5-6 at the MIDI shapes
+            rec["midi_shapes"] = {
+                k: {f: records[(k, torch.bfloat16)][f] for f in (
+                    "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "deterministic")
+                    if f in records[(k, torch.bfloat16)]}
+                for k in midi_keys}
+        rec["launches_per_step_midi_legs"] = {
+            leg: legs[leg]["launches_per_step"][name]
+            for leg in ("midi", "midi_bpe")}
         if serve is not None:
             rec["launches_serving"] = serve["launches"][name]
             rec["launches_per_serving_batch"] = \

@@ -1,11 +1,31 @@
-"""Training from the command line, on one CUDA card.
+"""The port's command line: prepare, train, evaluate, sample, make-eval-set.
 
-Port of ``fewshot/cli.py``'s ``train_main``:
+Port of ``fewshot/cli.py`` (``train_main``, ``evaluate_main``,
+``sample_main``) and of the offline scripts ``scripts/prepare_data.py`` and
+``scripts/make_eval_set.py``:
 
+    python -m fewshot_torch.cli prepare --out DIR (--synthetic [--dataset
+        lyrics|midi] | --lyrics_csv CSV | --midi_root DIR) [--artists N]
+        [--songs N] [--vocab_size N] [--max_len N] [--bpe_merges N]
+        [--notes_lo N] [--notes_hi N] [--seed N]
     python -m fewshot_torch.cli train --data <yaml> --model <yaml>
         --task <yaml> [--checkpt_dir DIR] [--set K=V ...]
         [--device cuda|cpu] [--profile_dir DIR] [--debug_nans]
         [--tensorboard]
+    python -m fewshot_torch.cli evaluate <the same config flags>
+        [--split S] [--episodes N] [--baseline unigram] [--per_artist]
+        [--eval_set NPZ [--also_split_eval]]
+    python -m fewshot_torch.cli sample <the same config flags> [--out DIR]
+        [--num N] [--split S]
+    python -m fewshot_torch.cli make-eval-set --corpus DIR --out NPZ
+        [--split S] [--episodes N] [--k K] [--q Q] [--seed N]
+
+``evaluate`` and ``sample`` print the JAX package's lines, so a script that
+parses one package's output parses the other's.  ``sample`` writes one
+``.txt`` per continuation for lyrics and one ``.mid`` for MIDI (BPE tokens
+expanded first; MIDI without merges is sampled under the event grammar's
+masks).  The corpora, fixed episode sets and ``.mid`` files are the JAX
+package's byte for byte for the same seeds.
 
 The step loop samples its episodes on the device, runs ``steps_per_call``
 steps per chunk (``training.make_multi_step``), logs loss, episodes/s and
@@ -13,8 +33,9 @@ the grad norm every ``log_interval`` steps, the validation NLL every
 ``eval_interval`` steps, and checkpoints every ``checkpoint_interval``
 steps and at the end (``utils/ckpt.py``; a run pointed at a directory with
 a checkpoint resumes from its latest step).  ``data_parallel`` on one card
-is a mesh of one device; ``pipeline: host`` is not ported yet.  The run is
-on ``cuda`` unless ``--device cpu`` is given, and raises without a card.
+is a mesh of one device; ``pipeline: host`` is not ported yet.  Every
+command that runs the model is on ``cuda`` unless ``--device cpu`` is
+given, and raises without a card.
 """
 
 from __future__ import annotations
@@ -22,16 +43,26 @@ from __future__ import annotations
 import argparse
 import math
 import sys
+import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
+from fewshot_torch import sampling as sampling_mod
 from fewshot_torch import training
 from fewshot_torch.config import add_config_flags, load_config, \
     parse_overrides
 from fewshot_torch.data import episodes as eps
-from fewshot_torch.data.corpus import PackedCorpus, support_coverage_estimate
+from fewshot_torch.data import midi as midi_mod
+from fewshot_torch.data.corpus import (PackedCorpus, build_lyrics_corpus,
+                                       build_midi_corpus,
+                                       support_coverage_estimate)
+from fewshot_torch.data.lyrics import detokenize
+from fewshot_torch.data.synthetic import (generate_lyrics_csv,
+                                          generate_midi_corpus)
 from fewshot_torch.device import resolve_device
+from fewshot_torch.models.unigram import evaluate_unigram
 from fewshot_torch.utils.ckpt import hparams_of, recover_or_init, \
     save_checkpoint
 from fewshot_torch.utils.metrics import MetricsLogger, Throughput
@@ -51,12 +82,12 @@ def _setup(argv, extra_flags=None):
     corpus_dir = Path(cfg.corpus_dir)
     if not (corpus_dir / "corpus.npz").exists():
         sys.exit(f"no packed corpus at {corpus_dir} — run "
-                 f"scripts/prepare_data.py first (see README)")
+                 f"python -m fewshot_torch.cli prepare first (see README)")
     corpus = PackedCorpus.load(corpus_dir)
     if corpus.max_len != cfg.max_len:
         print(f"warning: corpus max_len={corpus.max_len} != config "
               f"max_len={cfg.max_len}; the packed corpus wins "
-              f"(re-run scripts/prepare_data.py to change it)", flush=True)
+              f"(re-run prepare to change it)", flush=True)
     if corpus.vocab is not None and len(corpus.vocab) > cfg.vocab_size:
         sys.exit(f"corpus vocab ({len(corpus.vocab)}) exceeds config "
                  f"vocab_size ({cfg.vocab_size}); re-pack or raise the cap")
@@ -196,11 +227,227 @@ def train_main(argv=None) -> None:
     logger.close()
 
 
+def _restore(args, cfg, corpus, device):
+    """The train state of the config, its latest checkpoint restored when
+    --checkpt_dir is given (none there exits)."""
+    state = training.init_train_state(cfg, len(corpus.vocab), device=device)
+    vocab_hash = corpus.vocab.content_hash() if corpus.vocab else ""
+    state, restored = recover_or_init(args.checkpt_dir, state, vocab_hash,
+                                      hparams=hparams_of(cfg))
+    if args.checkpt_dir and not restored:
+        sys.exit(f"no checkpoint found in {args.checkpt_dir}")
+    return state
+
+
+def _print_base_token_nll(corpus, split: str, nll: float, prefix: str,
+                          song_ids=None) -> None:
+    """An NLL per BPE token is not comparable with one per base token:
+    print it rescaled by the compression ratio, over the split's song pool
+    or over the songs scored."""
+    if not (corpus.merges and corpus.base_song_len is not None):
+        return
+    ratio = eps.base_token_ratio(corpus, split, song_ids=song_ids)
+    scope = "set" if song_ids is not None else "split"
+    print(f"{prefix}_nll_per_base_token={nll * ratio:.6f} "
+          f"({scope} compression ratio {ratio:.3f})", flush=True)
+
+
+def evaluate_main(argv=None) -> None:
+    def flags(p):
+        p.add_argument("--split", default="test",
+                       choices=("train", "val", "test"))
+        p.add_argument("--episodes", type=int, default=None)
+        p.add_argument("--baseline", default=None, choices=("unigram",),
+                       help="evaluate a non-neural baseline instead")
+        p.add_argument("--per_artist", action="store_true",
+                       help="also print the NLL of each artist")
+        p.add_argument("--eval_set", type=str, default=None,
+                       help="score a fixed episode set (npz from "
+                            "make-eval-set): the same result across runs, "
+                            "batch sizes and packages")
+        p.add_argument("--also_split_eval", action="store_true",
+                       help="with --eval_set: also run the random-split "
+                            "evaluation afterwards")
+    args, cfg, corpus = _setup(argv, flags)
+    device = resolve_device(args.device)
+    data = eps.put_corpus(corpus, device)
+    split = _split_arg(cfg, corpus, args.split, device)
+    if args.baseline == "unigram":
+        if cfg.task != "episodic":
+            sys.exit("--baseline unigram requires task=episodic (it scores "
+                     "support-conditioned episodes)")
+        nll = evaluate_unigram(
+            cfg, corpus, data, split,
+            torch.Generator(device=device).manual_seed(cfg.seed),
+            args.episodes)
+        print(f"{args.split}_nll_per_token={nll:.6f} (unigram baseline)",
+              flush=True)
+        return
+    params = _restore(args, cfg, corpus, device).params
+    if args.eval_set:
+        if cfg.task != "episodic":
+            sys.exit("--eval_set requires task=episodic")
+        ids, arts, k, q = eps.load_episode_set(args.eval_set)
+        if (k, q) != (cfg.support_size, cfg.query_size):
+            sys.exit(f"eval set was built for K={k} Q={q}, config has "
+                     f"K={cfg.support_size} Q={cfg.query_size}")
+        step = training.make_fed_eval_step(cfg)
+        b = cfg.batch_size
+        # every batch's pair added on the device, one read at the end
+        stats = [torch.stack(step(params, eps.gather_episode(
+            data, ids[lo:lo + b], arts[lo:lo + b], k, q)))
+            for lo in range(0, len(ids), b)]
+        total, count = torch.stack(stats).sum(dim=0).tolist()
+        nll = total / max(count, 1.0)
+        print(f"eval_set_nll_per_token={nll:.6f} "
+              f"({len(ids)} fixed episodes from {args.eval_set})",
+              flush=True)
+        # over the set's own query songs: the set may come from another
+        # split than --split
+        _print_base_token_nll(corpus, args.split, nll, prefix="eval_set",
+                              song_ids=np.asarray(ids)[:, k:].ravel())
+        if not args.also_split_eval:
+            return          # one invocation, one advertised result
+    nll = training.evaluate(
+        cfg, params, data, split,
+        torch.Generator(device=device).manual_seed(cfg.seed),
+        num_episodes=args.episodes)
+    print(f"{args.split}_nll_per_token={nll:.6f}", flush=True)
+    _print_base_token_nll(corpus, args.split, nll, prefix=args.split)
+    if args.per_artist and cfg.task == "episodic":
+        # each artist's episodes alone, from the same generator seed
+        for a in np.asarray(corpus.splits[args.split]):
+            one = torch.tensor([int(a)], dtype=torch.int64, device=device)
+            nll = training.evaluate(
+                cfg, params, data, one,
+                torch.Generator(device=device).manual_seed(cfg.seed),
+                num_episodes=args.episodes)
+            name = (corpus.artist_names[int(a)] if corpus.artist_names
+                    else str(int(a)))
+            print(f"  artist {name}: nll={nll:.4f}", flush=True)
+
+
+def sample_main(argv=None) -> None:
+    def flags(p):
+        p.add_argument("--out", type=str, default="samples",
+                       help="output dir for .txt / .mid continuations")
+        p.add_argument("--num", type=int, default=4,
+                       help="number of continuations")
+        p.add_argument("--split", default="test",
+                       choices=("train", "val", "test"))
+    args, cfg, corpus = _setup(argv, flags)
+    device = resolve_device(args.device)
+    data = eps.put_corpus(corpus, device)
+    params = _restore(args, cfg, corpus, device).params
+    artists = torch.as_tensor(np.asarray(corpus.splits[args.split]),
+                              dtype=torch.int64, device=device)
+    ep = eps.sample_episode(
+        torch.Generator(device=device).manual_seed(cfg.seed), data, artists,
+        args.num, k=cfg.support_size, q=cfg.query_size)
+    gens = [sampling_mod.row_generator(cfg.seed + i, 1, device)
+            for i in range(args.num)]
+    toks = sampling_mod.generate(
+        params, ep.support, ep.support_len, gens, cfg,
+        token_masks=sampling_mod.grammar_masks(cfg, corpus, device))
+    toks = toks.cpu().numpy()
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    for i in range(args.num):
+        a = int(ep.artist[i])
+        artist = corpus.artist_names[a] if corpus.artist_names else str(a)
+        words = corpus.decode(toks[i])
+        if cfg.dataset == "midi":
+            path = out / f"sample_{i:02d}_{artist}.mid"
+            midi_mod.write_midi(midi_mod.events_to_notes(words), path)
+        else:
+            path = out / f"sample_{i:02d}_{artist}.txt"
+            path.write_text(detokenize(words) + "\n")
+        print(f"wrote {path}", flush=True)
+
+
+def make_eval_set_main(argv=None) -> None:
+    """Freeze N episodes' (artist, songs) of a corpus split into an npz
+    that ``evaluate --eval_set`` scores (``scripts/make_eval_set.py``)."""
+    p = argparse.ArgumentParser(prog="fewshot_torch.cli make-eval-set")
+    p.add_argument("--corpus", required=True)
+    p.add_argument("--split", default="test",
+                   choices=("train", "val", "test"))
+    p.add_argument("--episodes", type=int, default=512)
+    p.add_argument("--k", type=int, default=5)
+    p.add_argument("--q", type=int, default=5)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--out", required=True)
+    args = p.parse_args(argv)
+    corpus = PackedCorpus.load(args.corpus)
+    eps.save_episode_set(args.out, corpus, args.split, args.episodes,
+                         args.k, args.q, args.seed)
+    print(f"wrote {args.episodes} {args.split} episodes "
+          f"(K={args.k}, Q={args.q}) to {args.out}", flush=True)
+
+
+def prepare_main(argv=None) -> None:
+    """Build a packed corpus offline (``scripts/prepare_data.py``): a
+    seeded synthetic one, or one from a lyrics CSV or per-artist ``.mid``
+    directories, optionally with BPE merges learned at pack time."""
+    p = argparse.ArgumentParser(prog="fewshot_torch.cli prepare")
+    p.add_argument("--out", required=True, help="packed corpus output dir")
+    p.add_argument("--dataset", default="lyrics", choices=("lyrics", "midi"))
+    p.add_argument("--synthetic", action="store_true")
+    p.add_argument("--lyrics_csv", type=str, default=None)
+    p.add_argument("--midi_root", type=str, default=None)
+    p.add_argument("--artists", type=int, default=24)
+    p.add_argument("--songs", type=int, default=16)
+    p.add_argument("--vocab_size", type=int, default=5000)
+    p.add_argument("--max_len", type=int, default=256,
+                   help="0: the longest song + framing, rounded up to 8")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--bpe_merges", type=int, default=0,
+                   help="learn N byte-pair merges at pack time")
+    p.add_argument("--notes_lo", type=int, default=24,
+                   help="synthetic MIDI: fewest notes a song")
+    p.add_argument("--notes_hi", type=int, default=48,
+                   help="synthetic MIDI: most notes a song, exclusive")
+    args = p.parse_args(argv)
+    if args.lyrics_csv:
+        corpus = build_lyrics_corpus(args.lyrics_csv, args.out,
+                                     args.vocab_size, args.max_len, args.seed,
+                                     args.bpe_merges)
+    elif args.midi_root:
+        corpus = build_midi_corpus(args.midi_root, args.out, args.max_len,
+                                   args.seed, args.bpe_merges)
+    elif args.synthetic and args.dataset == "lyrics":
+        with tempfile.TemporaryDirectory() as tmp:
+            csv_path = Path(tmp) / "lyrics.csv"
+            generate_lyrics_csv(csv_path, args.artists, args.songs, args.seed)
+            corpus = build_lyrics_corpus(csv_path, args.out, args.vocab_size,
+                                         args.max_len, args.seed,
+                                         args.bpe_merges)
+    elif args.synthetic and args.dataset == "midi":
+        with tempfile.TemporaryDirectory() as tmp:
+            generate_midi_corpus(tmp, args.artists, args.songs, args.seed,
+                                 (args.notes_lo, args.notes_hi))
+            corpus = build_midi_corpus(tmp, args.out, args.max_len,
+                                       args.seed, args.bpe_merges)
+    else:
+        sys.exit("need --synthetic, --lyrics_csv, or --midi_root")
+    print(f"packed {corpus.songs.shape[0]} songs / "
+          f"{corpus.num_artists} artists -> {args.out} "
+          f"(vocab={len(corpus.vocab)}, max_len={corpus.max_len}, "
+          f"splits={ {k: len(v) for k, v in corpus.splits.items()} })",
+          flush=True)
+
+
+COMMANDS = {"prepare": prepare_main, "train": train_main,
+            "evaluate": evaluate_main, "sample": sample_main,
+            "make-eval-set": make_eval_set_main}
+
+
 def main(argv=None) -> None:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv[:1] != ["train"]:
-        sys.exit("usage: python -m fewshot_torch.cli train [flags]")
-    train_main(argv[1:])
+    if not argv or argv[0] not in COMMANDS:
+        sys.exit(f"usage: python -m fewshot_torch.cli "
+                 f"{{{','.join(COMMANDS)}}} [flags]")
+    COMMANDS[argv[0]](argv[1:])
 
 
 if __name__ == "__main__":

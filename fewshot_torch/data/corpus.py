@@ -1,9 +1,12 @@
 """Packed corpus: dense int32 arrays that episode assembly gathers from.
 
 Port of ``fewshot/data/corpus.py`` (pack, save, load, ``device_arrays``,
-``make_splits``, ``build_lyrics_corpus``).  It reads and writes the same
-``corpus.npz`` / ``meta.json`` / ``vocab.json`` files, so a corpus packed by
-either package serves both.
+``make_splits``, ``build_lyrics_corpus``, ``build_midi_corpus`` and the
+pack-time BPE).  It reads and writes the same ``corpus.npz`` /
+``meta.json`` / ``vocab.json`` / ``bpe.json`` files, so a corpus packed by
+either package serves both.  MIDI files are parsed by the port's Python SMF
+reader (``data/midi.py``); the JAX package prefers its native reader, which
+its own tests pin to the same notes.
 
 Arrays (all int32):
     songs            [S, max_len]  BOS + tokens + EOS, PAD-padded/truncated
@@ -12,6 +15,7 @@ Arrays (all int32):
     artist_song_ids  [A, M]        song ids per artist, padded with slot 0
     artist_num_songs [A]           valid prefix length of each artist row
     splits[name]     [n]           artist ids per split (train/val/test)
+    base_song_len    [S]           BPE corpora only: pre-BPE length + framing
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ from pathlib import Path
 
 import numpy as np
 
+from fewshot_torch.data import bpe
 from fewshot_torch.data import lyrics as lyrics_mod
-from fewshot_torch.data.vocab import BOS, EOS, PAD, Vocab
+from fewshot_torch.data import midi as midi_mod
+from fewshot_torch.data.vocab import BOS, EOS, PAD, SPECIALS, Vocab
 
 SPLIT_FRACS = {"train": 0.8, "val": 0.1, "test": 0.1}
 
@@ -38,6 +44,8 @@ class PackedCorpus:
     splits: dict[str, np.ndarray]
     artist_names: list[str] = field(default_factory=list)
     vocab: Vocab | None = None
+    merges: list = field(default_factory=list)   # BPE merge table (bpe.py)
+    base_song_len: np.ndarray | None = None      # pre-BPE lengths (+framing)
 
     @property
     def max_len(self) -> int:
@@ -87,22 +95,23 @@ class PackedCorpus:
     def save(self, corpus_dir: str | Path) -> None:
         d = Path(corpus_dir)
         d.mkdir(parents=True, exist_ok=True)
+        extra = ({"base_song_len": self.base_song_len}
+                 if self.base_song_len is not None else {})
         np.savez_compressed(
             d / "corpus.npz", songs=self.songs, song_len=self.song_len,
             song_artist=self.song_artist, artist_song_ids=self.artist_song_ids,
-            artist_num_songs=self.artist_num_songs,
+            artist_num_songs=self.artist_num_songs, **extra,
             **{f"split_{k}": v for k, v in self.splits.items()})
         (d / "meta.json").write_text(json.dumps(
             {"artist_names": self.artist_names}))
         if self.vocab is not None:
             self.vocab.save(d / "vocab.json")
+        if self.merges:
+            bpe.save_merges(self.merges, d / "bpe.json")
 
     @classmethod
     def load(cls, corpus_dir: str | Path) -> "PackedCorpus":
         d = Path(corpus_dir)
-        if (d / "bpe.json").exists():
-            raise NotImplementedError(
-                f"{d} is a BPE corpus; BPE expansion is not ported yet")
         z = np.load(d / "corpus.npz")
         splits = {k[len("split_"):]: z[k] for k in z.files
                   if k.startswith("split_")}
@@ -110,9 +119,20 @@ class PackedCorpus:
             if (d / "meta.json").exists() else {}
         vocab = Vocab.load(d / "vocab.json") \
             if (d / "vocab.json").exists() else None
+        merges = (bpe.load_merges(d / "bpe.json")
+                  if (d / "bpe.json").exists() else [])
         return cls(z["songs"], z["song_len"], z["song_artist"],
                    z["artist_song_ids"], z["artist_num_songs"], splits,
-                   meta.get("artist_names", []), vocab)
+                   meta.get("artist_names", []), vocab, merges,
+                   z["base_song_len"] if "base_song_len" in z.files
+                   else None)
+
+    def decode(self, ids) -> list[str]:
+        """Token ids -> token strings (specials dropped), BPE merges
+        expanded to base tokens first."""
+        if self.merges:
+            ids = bpe.expand(ids, self.merges)
+        return self.vocab.decode(ids)
 
     def device_arrays(self) -> dict[str, np.ndarray]:
         """The arrays episode assembly needs (episodes.put_corpus)."""
@@ -186,12 +206,52 @@ def make_splits(num_artists: int, seed: int = 0,
     }
 
 
-def build_lyrics_corpus(csv_path: str | Path, out_dir: str | Path,
-                        vocab_size: int, max_len: int,
-                        seed: int = 0) -> PackedCorpus:
-    """CSV -> tokens -> vocab -> packed corpus, saved under out_dir."""
-    rows = lyrics_mod.read_lyrics_csv(csv_path)
-    vocab, items = lyrics_mod.tokenize_corpus(rows, vocab_size)
+def _apply_bpe(items, vocab, bpe_merges: int):
+    """Learn and apply BPE at pack time: (the extended vocab, the
+    re-encoded items, the merge table, the pre-BPE song lengths + framing
+    for the per-base-token rescale)."""
+    vocab, merges = bpe.learn_bpe([ids for _, _, ids in items], vocab,
+                                  bpe_merges)
+    base_len = np.asarray([len(ids) + 2 for _, _, ids in items], np.int32)
+    items = [(a, s, bpe.encode(ids, merges)) for a, s, ids in items]
+    return vocab, items, merges, base_len
+
+
+def _pack_and_save(items, vocab, out_dir, max_len: int, seed: int,
+                   bpe_merges: int) -> PackedCorpus:
+    merges, base_len = [], None
+    if bpe_merges > 0:
+        vocab, items, merges, base_len = _apply_bpe(items, vocab, bpe_merges)
     corpus = PackedCorpus.pack(items, vocab, max_len, seed)
+    corpus.merges = merges
+    corpus.base_song_len = base_len
     corpus.save(out_dir)
     return corpus
+
+
+def build_lyrics_corpus(csv_path: str | Path, out_dir: str | Path,
+                        vocab_size: int, max_len: int, seed: int = 0,
+                        bpe_merges: int = 0) -> PackedCorpus:
+    """CSV -> tokens -> vocab (-> BPE) -> packed corpus, saved under
+    out_dir."""
+    rows = lyrics_mod.read_lyrics_csv(csv_path)
+    vocab, items = lyrics_mod.tokenize_corpus(rows, vocab_size)
+    return _pack_and_save(items, vocab, out_dir, max_len, seed, bpe_merges)
+
+
+def build_midi_corpus(midi_root: str | Path, out_dir: str | Path,
+                      max_len: int, seed: int = 0,
+                      bpe_merges: int = 0) -> PackedCorpus:
+    """Per-artist directories of ``.mid`` files -> event tokens (-> BPE)
+    -> packed corpus, saved under out_dir.  The event vocab is closed
+    (``midi.full_event_vocab``), so there is no counting pass; a file with
+    no notes is skipped."""
+    vocab = Vocab(SPECIALS + midi_mod.full_event_vocab())
+    items: list[tuple[str, str, list[int]]] = []
+    for adir in sorted(p for p in Path(midi_root).iterdir() if p.is_dir()):
+        for mid in sorted(adir.glob("*.mid")):
+            notes = midi_mod.parse_midi(mid)
+            if notes:
+                items.append((adir.name, mid.stem,
+                              vocab.encode(midi_mod.notes_to_events(notes))))
+    return _pack_and_save(items, vocab, out_dir, max_len, seed, bpe_merges)

@@ -2,8 +2,10 @@
 
 Port of ``fewshot/data/episodes.py`` (``put_corpus``, ``_choose_songs``,
 ``sample_episode``, ``sample_episode_for_artists``, ``sample_lm_batch``,
-``split_song_pool``, ``gather_episode``).  The packed corpus is moved to
-the device once; an episode is then a gather of song rows.
+``split_song_pool``, ``base_token_ratio``, the fixed episode sets
+``save_episode_set`` / ``load_episode_set``, ``gather_episode``).  The
+packed corpus is moved to the device once; an episode is then a gather of
+song rows.
 
 Song choice follows the JAX sampler's semantics: an artist with at least
 K+Q songs gives K+Q distinct songs, uniformly without replacement; for an
@@ -145,6 +147,52 @@ def split_song_pool(corpus, split: str) -> np.ndarray:
     artists = set(int(a) for a in corpus.splits[split])
     mask = np.array([int(a) in artists for a in corpus.song_artist])
     return np.nonzero(mask)[0].astype(np.int32)
+
+
+def base_token_ratio(corpus, split: str | None = None,
+                     song_ids: np.ndarray | None = None) -> float:
+    """targets(BPE) / targets(base): the factor that turns an NLL per BPE
+    token into one per base token (exact in expectation over episodes),
+    over a split's song pool or over explicit song ids (a fixed set's query
+    songs).  1.0 for a corpus without merges."""
+    if not (corpus.merges and corpus.base_song_len is not None):
+        return 1.0
+    pool = song_ids if song_ids is not None else split_song_pool(corpus,
+                                                                 split)
+    bpe_t = np.maximum(corpus.song_len[pool] - 1, 0).sum()
+    base_t = np.maximum(corpus.base_song_len[pool] - 1, 0).sum()
+    return float(bpe_t) / max(float(base_t), 1.0)
+
+
+def save_episode_set(path, corpus, split: str, n: int, k: int, q: int,
+                     seed: int = 0) -> None:
+    """Draw n episodes' song indices on the host and save them (npz).
+
+    The draws are the JAX package's (``np.random.RandomState(seed)``), so
+    both packages write the same arrays for the same seed, and a set frozen
+    by either scores in both: an evaluation on a set is the same across
+    runs, batch sizes and sampler changes."""
+    rng = np.random.RandomState(seed)
+    artists = np.asarray(corpus.splits[split])
+    song_ids = np.zeros((n, k + q), np.int32)
+    ep_artist = np.zeros((n,), np.int32)
+    for i in range(n):
+        a = int(artists[rng.randint(len(artists))])
+        row = corpus.artist_song_ids[a][: int(corpus.artist_num_songs[a])]
+        take = rng.choice(len(row), size=min(k + q, len(row)),
+                          replace=False)
+        while len(take) < k + q:
+            take = np.concatenate([take, rng.choice(len(row), size=1)])
+        song_ids[i] = row[take]
+        ep_artist[i] = a
+    np.savez(path, song_ids=song_ids, artist=ep_artist,
+             k=np.int32(k), q=np.int32(q), split=np.str_(split))
+
+
+def load_episode_set(path) -> tuple[np.ndarray, np.ndarray, int, int]:
+    """(song_ids [N, k+q], artist [N], k, q) of a saved episode set."""
+    z = np.load(path, allow_pickle=False)
+    return z["song_ids"], z["artist"], int(z["k"]), int(z["q"])
 
 
 def gather_episode(data: CorpusOnDevice, song_ids: torch.Tensor,

@@ -1,10 +1,11 @@
-"""Deterministic synthetic lyrics corpus (offline stand-in for scraped data).
+"""Deterministic synthetic corpora (offline stand-ins for scraped data).
 
-Port of the lyrics half of ``fewshot/data/synthetic.py``
-(``generate_lyrics_csv``): the same seeded numpy stream, so both packages
-write byte-identical CSVs for the same arguments.  Every artist gets its own
-word style, so conditioning on an artist's support songs is a real few-shot
-task.
+Port of ``fewshot/data/synthetic.py`` (``generate_lyrics_csv``,
+``generate_midi_corpus``): the same seeded numpy streams, so both packages
+write a byte-identical lyrics CSV and byte-identical per-artist ``.mid``
+files for the same arguments.  Every artist gets its own style (signature
+words; a musical scale, key, register, loudness and note spacing), so
+conditioning on an artist's support songs is a real few-shot task.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import csv
 from pathlib import Path
 
 import numpy as np
+
+from fewshot_torch.data.midi import Note, write_midi
 
 _COMMON = ("the a my your in on of and i you we it to for with night day "
            "heart time love never always gone away home road fire rain light "
@@ -131,3 +134,45 @@ def generate_lyrics_csv(path: str | Path, num_artists: int = 24,
             for s in range(songs_per_artist):
                 text = _draw_song(rng, style, pool, pool_p, s < n_generic)
                 writer.writerow([_artist_name(a), f"song_{s:03d}", text])
+
+
+_SCALES = {  # semitone offsets within an octave
+    "major": [0, 2, 4, 5, 7, 9, 11],
+    "minor": [0, 2, 3, 5, 7, 8, 10],
+    "pent": [0, 3, 5, 7, 10],
+}
+
+
+def generate_midi_corpus(root: str | Path, num_artists: int = 24,
+                         songs_per_artist: int = 16, seed: int = 0,
+                         notes_range: tuple[int, int] = (24, 48)) -> None:
+    """Write per-artist directories of ``.mid`` files with per-artist
+    styles.  notes_range: (lo, hi) notes per song, hi exclusive (each note
+    becomes 4 SHIFT/PITCH/DUR/VEL events)."""
+    rng = np.random.RandomState(seed + 1)
+    root = Path(root)
+    scale_names = list(_SCALES)
+    for a in range(num_artists):
+        adir = root / _artist_name(a)
+        adir.mkdir(parents=True, exist_ok=True)
+        key = rng.randint(0, 12)
+        scale = _SCALES[scale_names[a % len(scale_names)]]
+        register = rng.randint(48, 68)          # the artist's pitch centre
+        vel_center = rng.randint(40, 100)
+        tempo_grid = rng.choice([0.125, 0.25, 0.375])  # note spacing (s)
+        for s in range(songs_per_artist):
+            n_notes = rng.randint(notes_range[0], notes_range[1])
+            t = 0.0
+            deg = rng.randint(0, len(scale))
+            notes = []
+            for _ in range(n_notes):
+                deg = (deg + rng.randint(-2, 3)) % len(scale)
+                octave = rng.choice([-12, 0, 0, 0, 12])
+                pitch = int(np.clip(register + key + scale[deg] + octave,
+                                    21, 108))
+                dur = tempo_grid * rng.choice([1, 1, 2, 2, 4])
+                vel = int(np.clip(vel_center + rng.randint(-12, 13), 1, 127))
+                notes.append(Note(start=t, end=t + dur, pitch=pitch,
+                                  velocity=vel))
+                t += tempo_grid * rng.choice([1, 1, 1, 2])
+            write_midi(notes, adir / f"song_{s:03d}.mid")

@@ -464,6 +464,13 @@ def lm_nll_stats(params: LM, tokens: torch.Tensor, lengths: torch.Tensor,
     return token_nll(logits, targets, mask)
 
 
+def lm_nll(params: LM, tokens: torch.Tensor, lengths: torch.Tensor,
+           cfg) -> torch.Tensor:
+    """Plain LM loss (NLL/token) on a [B, T] batch of songs."""
+    total, count = lm_nll_stats(params, tokens, lengths, cfg)
+    return total / count.clamp_min(1.0)
+
+
 def support_state(params: LM, support: torch.Tensor,
                   support_len: torch.Tensor, cfg, eval_mode: bool = False):
     """The priming per-layer (h, c) derived from the support set.
@@ -580,3 +587,12 @@ def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False):
         m = flat_mask.float()
         return (-lm_branch() * m).sum(), m.sum()
     return token_nll(logits, flat_targets, flat_mask)
+
+
+def episodic_nll(params: LM, ep, cfg) -> torch.Tensor:
+    """Query-set NLL/token of a meta-batch of episodes (the metric).
+
+    eval_mode=True: a metric is never differentiated, and it is the pure
+    mixture CE (no train-only cache_lm_aux or cache_resp_floor term)."""
+    total, count = episodic_nll_stats(params, ep, cfg, eval_mode=True)
+    return total / count.clamp_min(1.0)

@@ -1,14 +1,18 @@
 """Few-shot generation: support-primed top-k / nucleus sampling.
 
-Port of ``fewshot/sampling.py`` without the grammar masks and the finetune
-variant: ``filtered_sample``, the decode loop, ``sample_lstm``,
+Port of ``fewshot/sampling.py`` without the finetune variant:
+``filtered_sample``, the decode loop, ``sample_lstm``,
 ``sample_transformer`` (the support prefix prefilled into a KV cache
 through the prefix-attention kernels, then one cached step per token) and
 ``generate``.  With the cache head (``support_cache``) every step samples
 from the same gated mixture the model is scored under: the static cache's
 support posterior, or (``cache_dynamic``) that posterior with the row's
 own emitted tokens counted in, as the continuous-cache NLL counts the
-query's prefix.  Semantics are the JAX package's:
+query's prefix.  ``token_masks`` [P, V] (the MIDI event grammar,
+``data.midi.grammar_masks``) restricts each step to the legal tokens of the
+row's phase, applied after the cache mixture; the phase advances by one
+(mod P) on each token a live row emits, and a finished row keeps its
+phase.  Semantics are the JAX package's:
 
   * temperature scales the logits BEFORE top-k truncation;
   * top_k == 0 means full ancestral sampling; 0 < top_p < 1 also applies
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import torch
 
+from fewshot_torch.data import midi as midi_mod
 from fewshot_torch.data.vocab import BOS, EOS, PAD
 from fewshot_torch.models import lm as lm_mod
 from fewshot_torch.models import lstm as lstm_mod
@@ -45,6 +50,16 @@ def row_generator(seed: int, stream: int,
     g = torch.Generator(device=device)
     g.manual_seed((int(seed) * 2 + stream) % 2 ** 63)
     return g
+
+
+def grammar_masks(cfg, corpus, device) -> torch.Tensor | None:
+    """The MIDI event grammar's [4, V] masks on `device` where the config
+    samples under them (``grammar_sampling`` on a MIDI corpus without BPE
+    merges: a merged token spans phases), else None."""
+    if cfg.dataset == "midi" and cfg.grammar_sampling and not corpus.merges:
+        return torch.as_tensor(midi_mod.grammar_masks(corpus.vocab),
+                               device=device)
+    return None
 
 
 def gumbel_noise(generators, n_tokens: int, vocab: int,
@@ -123,9 +138,11 @@ def _count_emitted(c_pre: torch.Tensor, n_pre: torch.Tensor,
 
 
 def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
-            temperature, early_exit: bool, ctx=None) -> torch.Tensor:
+            temperature, early_exit: bool, ctx=None,
+            token_masks: torch.Tensor | None = None) -> torch.Tensor:
     """The decode loop from BOS: step(tok [B], i) -> top hidden [B, D] of
-    position i; ctx: the cache head's context (``_cache_ctx``) or None.
+    position i; ctx: the cache head's context (``_cache_ctx``) or None;
+    token_masks: [P, V] bool, the legal tokens of each phase, or None.
     Returns tokens [B, n_tokens], PAD after a row's EOS."""
     if len(generators) != b:
         raise ValueError(f"need one generator per row ({b}), got "
@@ -143,6 +160,10 @@ def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
     if dynamic:
         c_pre = torch.zeros((b, vocab), device=dev)
         n_pre = torch.zeros((b, 1), device=dev)
+    if token_masks is not None:
+        token_masks = torch.as_tensor(token_masks, dtype=torch.bool,
+                                      device=dev)
+        phase = torch.zeros((b,), dtype=torch.int64, device=dev)
     for i in range(n_tokens):
         if early_exit and i and i % EXIT_CHECK_EVERY == 0 \
                 and bool(done.all()):
@@ -154,9 +175,14 @@ def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
             log_cache = (_dynamic_log_cache(ctx, c_pre, n_pre) if dynamic
                          else ctx[1])
             logits = lm_mod.cache_mixed_logp(params, logits, h, log_cache)
+        if token_masks is not None:
+            logits = logits.masked_fill(~token_masks[phase], float("-inf"))
         nxt = filtered_sample(noise[i], logits, temp, cfg.top_k, cfg.top_p)
         nxt = nxt.masked_fill(done, PAD)
         done = done | (nxt == EOS)
+        if token_masks is not None:
+            phase = torch.where(done, phase,
+                                (phase + 1) % token_masks.shape[0])
         if dynamic:
             c_pre, n_pre = _count_emitted(c_pre, n_pre, nxt)
         toks[:, i] = nxt
@@ -166,7 +192,7 @@ def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
 
 def sample_lstm(params, support: torch.Tensor, support_len: torch.Tensor,
                 generators, cfg, n_tokens: int, temperature=None,
-                early_exit: bool = True) -> torch.Tensor:
+                early_exit: bool = True, token_masks=None) -> torch.Tensor:
     """LSTM few-shot continuation.  support [B, K, L] -> tokens [B, n]."""
     b = support.shape[0]
     dev = support.device
@@ -184,13 +210,15 @@ def sample_lstm(params, support: torch.Tensor, support_len: torch.Tensor,
         return h
     return _decode(params, step, b, dev, generators, cfg, n_tokens,
                    temperature, early_exit,
-                   _cache_ctx(params, support, support_len, cfg))
+                   _cache_ctx(params, support, support_len, cfg),
+                   token_masks)
 
 
 def sample_transformer(params, support: torch.Tensor,
                        support_len: torch.Tensor, generators, cfg,
                        n_tokens: int, temperature=None,
-                       early_exit: bool = True) -> torch.Tensor:
+                       early_exit: bool = True,
+                       token_masks=None) -> torch.Tensor:
     """Transformer few-shot continuation by prefix KV-cache decode: the K
     support songs (support_mode state or mean_state) prefill the cache in
     one pass, then position K L + i decodes token i.  support [B, K, L] ->
@@ -205,7 +233,8 @@ def sample_transformer(params, support: torch.Tensor,
         return h
     return _decode(params, step, support.shape[0], support.device,
                    generators, cfg, n_tokens, temperature, early_exit,
-                   _cache_ctx(params, support, support_len, cfg))
+                   _cache_ctx(params, support, support_len, cfg),
+                   token_masks)
 
 
 def prefix_cache(params, support: torch.Tensor, support_len: torch.Tensor,
@@ -229,16 +258,17 @@ def prefix_cache(params, support: torch.Tensor, support_len: torch.Tensor,
 
 def generate(params, support: torch.Tensor, support_len: torch.Tensor,
              generators, cfg, n_tokens: int | None = None, temperature=None,
-             early_exit: bool = True) -> torch.Tensor:
+             early_exit: bool = True, token_masks=None) -> torch.Tensor:
     """Support-conditioned continuations [B, n] (int64 token ids).
 
     generators: one torch.Generator per row, on the support's device; row
     i's continuation depends only on generators[i].  temperature: optional
     scalar or [B] overriding cfg.temperature.  early_exit stops once every
-    row has emitted EOS; the output is the same either way."""
+    row has emitted EOS; the output is the same either way.  token_masks:
+    optional [P, V] bool per-phase legal tokens (the MIDI grammar)."""
     lm_mod.check_supported(cfg)
     n = n_tokens if n_tokens is not None else cfg.sample_tokens
     fn = sample_lstm if cfg.model == "lstm" else sample_transformer
     with torch.inference_mode():
         return fn(params, support, support_len, generators, cfg, n,
-                  temperature, early_exit)
+                  temperature, early_exit, token_masks)

@@ -1,6 +1,6 @@
 """Serving tier: few-shot continuations over HTTP from one device.
 
-Port of ``fewshot/serve.py`` for lyrics models (LSTM or transformer).  One
+Port of ``fewshot/serve.py`` (LSTM or transformer; lyrics or MIDI).  One
 process loads the corpus and parameters once, warms the sampler, and
 serves:
 
@@ -19,11 +19,16 @@ noise come from generators seeded by the row's own seed, so a request's
 output does not depend on what it was batched with.
 
 Models with the cache head (``support_cache``) sample from its mixture.
+A MIDI model (``dataset: midi``) samples under the event grammar's masks
+(``grammar_sampling``; not for a BPE corpus, whose merged tokens span
+phases) and answers with each continuation's ``events`` and its count of
+decoded ``notes`` in place of ``text``; BPE tokens are expanded to base
+tokens first.
 Run: ``python -m fewshot_torch.serve --data … --model … --task …
 [--checkpt_dir DIR] [--serve_batch N] [--device cuda|cpu] [--set K=V …]``;
 DIR is a training run's checkpoint directory (its latest step is served)
-or a directory holding a bare ``params.npz``.  MIDI grammar masks and
-multi-GPU serving are later slices of the port.
+or a directory holding a bare ``params.npz``.  Multi-GPU serving is a
+later slice of the port.
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ import torch
 
 from fewshot_torch import sampling as sampling_mod
 from fewshot_torch.data import episodes as eps
+from fewshot_torch.data import midi as midi_mod
 from fewshot_torch.data.lyrics import detokenize
 from fewshot_torch.device import resolve_device
 from fewshot_torch.models import lm as lm_mod
@@ -74,9 +80,6 @@ class Generator:
                  device: torch.device | str | None = None):
         self.device = resolve_device(device)
         lm_mod.check_supported(cfg)
-        if cfg.dataset == "midi":
-            raise NotImplementedError(
-                "MIDI serving (grammar masks) is not ported yet")
         self.cfg = cfg
         self.corpus = corpus
         self.batch = batch_size or max(4, cfg.batch_size)
@@ -84,6 +87,8 @@ class Generator:
         self.params = params.to(self.device)
         self.data = eps.put_corpus(corpus, self.device)
         self.splits = {k: np.asarray(v) for k, v in corpus.splits.items()}
+        self.token_masks = sampling_mod.grammar_masks(cfg, corpus,
+                                                      self.device)
         self._artist_index = {name: i for i, name
                               in enumerate(corpus.artist_names)}
         self._queue: "queue.Queue[_Request | None]" = queue.Queue()
@@ -110,7 +115,8 @@ class Generator:
             k=self.cfg.support_size, q=self.cfg.query_size)
         toks = sampling_mod.generate(
             self.params, ep.support, ep.support_len, gen_gens, self.cfg,
-            temperature=torch.as_tensor(temps, device=self.device))
+            temperature=torch.as_tensor(temps, device=self.device),
+            token_masks=self.token_masks)
         return toks.cpu().numpy()
 
     def _row_specs(self, req: _Request, rng: np.random.RandomState):
@@ -221,13 +227,18 @@ class Generator:
         req = self._submit(num, artist_id, split, episode_seed, temperature)
         out = []
         for i in range(num):
-            words = self.corpus.vocab.decode(req.toks[i])
+            words = self.corpus.decode(req.toks[i])
             a = int(req.artists[i])
             name = (self.corpus.artist_names[a]
                     if self.corpus.artist_names else str(a))
-            out.append({"artist": name, "tokens": len(words),
-                        "latency_s": round(req.latency, 4),
-                        "text": detokenize(words)})
+            rec = {"artist": name, "tokens": len(words),
+                   "latency_s": round(req.latency, 4)}
+            if self.cfg.dataset == "midi":
+                rec["events"] = words
+                rec["notes"] = len(midi_mod.events_to_notes(words))
+            else:
+                rec["text"] = detokenize(words)
+            out.append(rec)
         return out
 
 

@@ -236,6 +236,21 @@ def make_fed_eval_step(cfg):
     return eval_step
 
 
+def evaluate_fed(cfg, params, pipe, num_episodes: int | None = None,
+                 eval_step=None) -> float:
+    """Average NLL/token over episodes drawn from `pipe`, any iterator of
+    Episodes (its ``batch`` attribute, else cfg.batch_size, is the episodes
+    a draw holds): num_episodes // batch draws, at least one.  Every
+    draw's pair is added on the device and one pair is read at the end."""
+    n = num_episodes if num_episodes is not None else cfg.eval_episodes
+    step = eval_step if eval_step is not None else make_fed_eval_step(cfg)
+    batch = getattr(pipe, "batch", cfg.batch_size)
+    stats = [torch.stack(step(params, next(pipe)))
+             for _ in range(max(1, n // batch))]
+    total, count = torch.stack(stats).sum(dim=0).tolist()
+    return total / max(count, 1.0)
+
+
 def mean_nll(step, params, gen: torch.Generator, cfg,
              num_episodes: int | None = None) -> float:
     """Average NLL/token of step(params, gen) -> (ce_sum, count) over

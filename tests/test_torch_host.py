@@ -158,7 +158,7 @@ def test_isolation_guard_imports():
     proc = subprocess.run([sys.executable, "-c", _GUARD], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
-    assert int(proc.stdout.split()[-1]) >= 29      # every module imported
+    assert int(proc.stdout.split()[-1]) >= 32      # every module imported
 
 
 _BANNED = re.compile(r"^\s*(import\s+(jax|jaxlib|fewshot)\b(?!_torch)"
@@ -169,7 +169,7 @@ _BANNED = re.compile(r"^\s*(import\s+(jax|jaxlib|fewshot)\b(?!_torch)"
 def test_isolation_guard_sources():
     files = sorted((REPO / "fewshot_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
-    assert len(files) > 25
+    assert len(files) > 28
     names = {f.relative_to(REPO).as_posix() for f in files}
     assert {"fewshot_torch/ops/head_ce.py",
             "fewshot_torch/models/unigram.py",
@@ -177,7 +177,9 @@ def test_isolation_guard_sources():
             "fewshot_torch/ops/attention.py",
             "fewshot_torch/models/transformer.py",
             "fewshot_torch/cli.py", "fewshot_torch/utils/ckpt.py",
-            "fewshot_torch/utils/metrics.py"} <= names
+            "fewshot_torch/utils/metrics.py", "fewshot_torch/data/midi.py",
+            "fewshot_torch/data/bpe.py",
+            "fewshot_torch/models/base.py"} <= names
     for f in files:
         hits = _BANNED.findall(f.read_text())
         assert not hits, (f, hits)

@@ -132,9 +132,17 @@ def test_generator_without_cuda_raises(corpus, monkeypatch):
 
 
 def test_midi_serving_is_a_later_slice(corpus):
+    """The later slice has landed: a MIDI config is served, under the
+    grammar masks built over the corpus vocab (tests/test_torch_serve_midi.py
+    drives MIDI serving over HTTP)."""
     import dataclasses
+    from fewshot_torch.data.midi import grammar_masks
     params = init_lm(CFG, len(corpus.vocab),
                      torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError):
-        Generator(dataclasses.replace(CFG, dataset="midi"), corpus, params,
-                  device="cpu")
+    gen = Generator(dataclasses.replace(CFG, dataset="midi"), corpus, params,
+                    device="cpu")
+    try:
+        assert torch.equal(gen.token_masks,
+                           torch.as_tensor(grammar_masks(corpus.vocab)))
+    finally:
+        gen.close()
