@@ -97,6 +97,23 @@ Phases, each of which exits non-zero on failure:
      kernel (its count must rise) within tolerance of the einsum route;
  13. the cfg.flash route (row 10: ops.attention.causal_attention with
      use_flash) through the no-prefix kernel against the einsum route;
+ 13b. the training options of slice 12: training A and C with dropout
+     0.1 on the kernel route (the loss finite, every kernel launched per
+     step as without dropout, the persistent routes only, the trained
+     weights' val NLL the same bits under dropout 0.1 and 0); training D
+     with remat (one episode's grads against remat off, leaf by leaf:
+     the same bits where three runs without remat give the same bits,
+     else within REMAT_SPREAD times their largest difference; a train step
+     each way: the attention forward launched twice as often under remat,
+     the backward as often, the peak memory recorded); the finetune
+     variant at full width (the LSTM cache recipe, B=16, two inner SGD
+     steps at lr 0.05, cell=scan: 20 FOMAML steps with the loss falling,
+     one eval batch, a checkpoint saved, restored bit-identical and served
+     one batch of 16 rows; the kernel route refused; no kernel launched);
+     and one short leg of ``python -m fewshot_torch.quality`` (60 steps,
+     evals every 20 on 32 episodes) on the V=5000 corpus, its JSON checked
+     (the cut recorded, the verdict withheld, the best-val parameters
+     scored on JAX's 512 test episodes);
  14. the width repairs: kernels 1-2 on their step route in train mode at
      160 rows x 96 steps and H past the former shared-memory limits (fp32
      768 and 2048, bf16 1536 and 2560), and kernels 7-9 at the query
@@ -249,14 +266,6 @@ T0 = time.perf_counter()
 def log(msg: str) -> None:
     """One progress line, after the seconds since the script started."""
     print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -1700,6 +1709,265 @@ def flash_phase(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the training options of slice 12: dropout, remat, finetune; the harness
+# ---------------------------------------------------------------------------
+
+DROPOUT = 0.1
+FT_STEPS = 20           # FOMAML steps of the finetune phase
+REMAT_SPREAD = 10       # remat vs no remat, for a leaf whose bits differ
+                        # between runs without remat: at most this many
+                        # times the largest such difference
+
+
+def dropout_phase(label, cfg, corpus, dev, per_step, persistent=()) -> dict:
+    """cfg with dropout DROPOUT on the kernel route: a warm-up call and 2
+    timed calls of steps_per_call steps, the loss finite, the kernels
+    launched per step exactly as without dropout (per_step), the
+    persistent routes only; then the trained weights' val NLL under
+    DROPOUT and under 0, which must be the same bits (evaluation draws no
+    mask)."""
+    from fewshot_torch import training
+    from fewshot_torch.data import episodes as eps
+    drop = dataclasses.replace(cfg, dropout=DROPOUT)
+    data = eps.put_corpus(corpus, dev)
+    split = torch.as_tensor(np.asarray(corpus.splits["train"]),
+                            dtype=torch.int64, device=dev)
+    state = training.init_train_state(drop, len(corpus.vocab), device=dev)
+    step = training.make_multi_step(
+        training.make_train_step(drop, data, split), drop.steps_per_call)
+    state, m = step(state)
+    losses = [float(m["loss"])]
+    torch.cuda.synchronize()
+    kernel_counters = reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        state, m = step(state)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = 2 * drop.steps_per_call
+    launches = {n: fn.launches for n, fn in kernel_counters.items()}
+    routes = route_counts(kernel_counters, persistent, label)
+    nll = {d: eval_phase(label, dataclasses.replace(cfg, dropout=d),
+                         state.params, data, corpus, dev)["nll"]
+           for d in (DROPOUT, 0.0)}
+    rec = {"phase": label, "dropout": DROPOUT, "timed_steps": steps,
+           "wall_s": wall, "episodes_per_s": steps * cfg.batch_size / wall,
+           "losses_per_call": losses, "launches": launches,
+           "route_launches": routes,
+           "launches_per_step": {n: v / steps for n, v in launches.items()},
+           "val_nll_dropout": nll[DROPOUT], "val_nll_no_dropout": nll[0.0]}
+    log(f"{label}: {json.dumps(rec)}")
+    if not np.isfinite(losses).all():
+        raise RuntimeError(f"{label}: loss not finite: {losses}")
+    for n, want in per_step.items():
+        if launches[n] != want * steps:
+            raise RuntimeError(f"{label}: {n} launched {launches[n]} times "
+                               f"in {steps} steps, not {want} per step")
+    if nll[DROPOUT] != nll[0.0]:
+        raise RuntimeError(f"{label}: evaluation moved with dropout: {nll}")
+    return rec
+
+
+def remat_phase(cfg, corpus, dev) -> dict:
+    """Training D with remat=True against remat=False: one episode's grads
+    from the same weights, three times without remat and once with, leaf
+    by leaf: the same bits as the first run without remat where the other
+    two give its bits, else within REMAT_SPREAD times their largest
+    difference (of the leaf's largest); one train step of each (after a
+    warm-up step), its attention launches (the forward twice under remat:
+    the backward recomputes each block) and its peak memory."""
+    from fewshot_torch import training
+    from fewshot_torch.data import episodes as eps
+    from fewshot_torch.models import lm
+    data = eps.put_corpus(corpus, dev)
+    split = torch.as_tensor(np.asarray(corpus.splits["train"]),
+                            dtype=torch.int64, device=dev)
+    ep = eps.sample_episode(torch.Generator(device=dev).manual_seed(123),
+                            data, split, cfg.batch_size,
+                            k=cfg.support_size, q=cfg.query_size)
+    params = lm.init_lm(cfg, len(corpus.vocab),
+                        torch.Generator().manual_seed(cfg.seed), dev)
+
+    def grads(remat):
+        for p in params.parameters():
+            p.grad = None
+        total, _ = lm.episodic_nll_stats(
+            params, ep, dataclasses.replace(cfg, remat=remat))
+        total.backward()
+        return {k: p.grad.clone() for k, p in params.named_parameters()}
+
+    base, again, remat = grads(False), [grads(False), grads(False)], \
+        grads(True)
+
+    def diff(a, b):
+        return {k: float((a[k].float() - b[k].float()).abs().max()
+                         / a[k].float().abs().max().clamp_min(1e-30))
+                for k in a}
+    spread = {k: max(diff(base, a)[k] for a in again) for k in base}
+    steps = {}
+    for flag in (False, True):
+        c = dataclasses.replace(cfg, remat=flag)
+        state = training.init_train_state(c, len(corpus.vocab), device=dev)
+        step = training.make_train_step(c, data, split)
+        state, _ = step(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev)
+        kernel_counters = reset_counts()
+        state, m = step(state)
+        torch.cuda.synchronize()
+        steps[flag] = {
+            "loss": float(m["loss"]),
+            "launches": {n: fn.launches for n, fn in kernel_counters.items()},
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(
+                dev),
+            "peak_above_held_bytes": torch.cuda.max_memory_allocated(dev)
+            - held, "step_ms": host_ms(lambda: step(state), reps=3)}
+    rec = {"phase": "training_D_remat",
+           "grads_bits_equal": all(torch.equal(base[k], remat[k])
+                                   for k in base),
+           "grads_bits_equal_no_remat_thrice": all(
+               torch.equal(base[k], a[k]) for a in again for k in base),
+           "grads_rel_diff_remat": diff(base, remat),
+           "grads_rel_diff_no_remat_thrice": spread,
+           "no_remat": steps[False], "remat": steps[True]}
+    log(f"training_D_remat: {json.dumps(rec)}")
+    fwd = [steps[f]["launches"]["prefix_attn_fwd"] for f in (False, True)]
+    bwd = [steps[f]["launches"]["prefix_attn_bwd_dq"] for f in (False, True)]
+    held = all(torch.equal(base[k], remat[k]) if spread[k] == 0 else
+               rec["grads_rel_diff_remat"][k] <= REMAT_SPREAD * spread[k]
+               for k in base)
+    if not (np.isfinite([steps[f]["loss"] for f in steps]).all()
+            and fwd[1] == 2 * fwd[0] > 0 and bwd[0] == bwd[1] > 0
+            and held):
+        raise RuntimeError(f"training_D_remat failed its gates: {rec}")
+    return rec
+
+
+def finetune_phase(cfg, corpus, dev, ckpt_dir: Path) -> dict:
+    """The finetune variant at full width (cfg: the LSTM cache recipe at
+    B=16 with the leg's inner loop, cell='scan': the kernel route is
+    refused, as JAX's outer grad fails there): FT_STEPS FOMAML steps (the
+    loss and grad norm finite, the last loss below the first step's), one
+    eval batch, then the weights saved as a checkpoint, restored (the same
+    bits) and served one request batch of B rows.  Nothing of it launches
+    a kernel."""
+    from fewshot_torch import training
+    from fewshot_torch.data import episodes as eps
+    from fewshot_torch.models import lm
+    from fewshot_torch.serve import Generator
+    from fewshot_torch.utils import ckpt
+    try:
+        lm.check_supported(dataclasses.replace(cfg, cell="pallas"))
+        raise RuntimeError("finetune on the kernel route was not refused")
+    except ValueError:
+        pass
+    data = eps.put_corpus(corpus, dev)
+    split = {s: torch.as_tensor(np.asarray(corpus.splits[s]),
+                                dtype=torch.int64, device=dev)
+             for s in ("train", "val")}
+    state = training.init_train_state(cfg, len(corpus.vocab), device=dev)
+    step = training.make_train_step(cfg, data, split["train"])
+    kernel_counters = reset_counts()
+    losses, norms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FT_STEPS):
+        state, m = step(state)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+    wall = time.perf_counter() - t0
+    eval_step = training.make_eval_step(cfg, data, split["val"])
+    t0 = time.perf_counter()
+    total, count = eval_step(state.params,
+                             torch.Generator(device=dev).manual_seed(7))
+    nll = float(total) / max(float(count), 1.0)
+    eval_s = time.perf_counter() - t0
+    busy_ms, top = device_busy_ms(lambda: step(state), top=6)
+    vocab_hash = corpus.vocab.content_hash()
+    ckpt.save_checkpoint(ckpt_dir, state, vocab_hash,
+                         hparams=ckpt.hparams_of(cfg))
+    params = ckpt.restore_params(ckpt_dir, dev, vocab_hash,
+                                 ckpt.hparams_of(cfg))
+    same = all(torch.equal(p, dict(params.named_parameters())[k])
+               for k, p in state.params.named_parameters())
+    gen = Generator(cfg, corpus, params, batch_size=cfg.batch_size,
+                    device=dev)
+    try:
+        t0 = time.perf_counter()
+        outs = gen.generate(num=cfg.batch_size, split="test",
+                            episode_seed=99)
+        serve_s = time.perf_counter() - t0
+    finally:
+        gen.close()
+    launches = {n: fn.launches for n, fn in kernel_counters.items()}
+    rec = {"phase": "finetune", "batch": cfg.batch_size,
+           "inner_steps": cfg.inner_steps, "inner_lr": cfg.inner_lr,
+           "first_order": cfg.first_order, "cell": cfg.cell,
+           "steps": FT_STEPS, "wall_s": wall, "step_ms": 1e3 * wall
+           / FT_STEPS, "episodes_per_s": FT_STEPS * cfg.batch_size / wall,
+           "step_device_busy_ms": busy_ms, "step_device_top_kernels": top,
+           "losses": losses, "grad_norms": norms,
+           "eval_batch_nll": nll, "eval_batch_s": eval_s,
+           "restored_bits_equal": same, "served_rows": len(outs),
+           "served_tokens": [o["tokens"] for o in outs],
+           "serve_batch_s": serve_s, "launches": launches}
+    log(f"finetune: {json.dumps(rec)}")
+    if not (np.isfinite(losses + norms + [nll]).all()
+            and losses[-1] < losses[0] and same
+            and len(outs) == cfg.batch_size
+            and all(o["tokens"] > 0 for o in outs)
+            and not any(launches.values())):
+        raise RuntimeError(f"finetune phase failed its gates: {rec}")
+    return rec
+
+
+def harness_phase(corpus_dir: Path, tmp: Path) -> dict:
+    """One short leg of ``python -m fewshot_torch.quality`` (the flagship
+    cache recipe, 60 steps, evals every 20 on 32 episodes) in a new
+    process, on the V=5000 corpus already built; its JSON must hold the
+    leg with its floors, curve, test NLL and card line, the cut recorded
+    and so no verdict, and the best-val parameters' NLL on JAX's test
+    episodes."""
+    root = tmp / "quality"
+    (root / "lyrics").mkdir(parents=True)
+    (root / "lyrics" / "plain").symlink_to(corpus_dir)
+    out, tag = tmp / "quality.json", "plain_cache_full_floor"
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "fewshot_torch.quality", "--legs", tag,
+         "--root", str(root), "--out", str(out), "--max_steps", "60",
+         "--eval_every", "20", "--eval_episodes", "32"],
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"harness: failed:\n{proc.stderr[-3000:]}")
+    result = json.loads(out.read_text())
+    leg = result[tag]
+    rec = {"phase": "harness", "wall_s": wall, "card": result["cards"][tag],
+           "verdict": result["verdicts"][tag], "cut": result["cuts"][tag],
+           "jax_episodes": result["jax_episodes"][tag],
+           **{k: leg[k] for k in ("steps_trained", "best_step", "test_nll",
+                                  "unigram_floor_test",
+                                  "episodes_per_sec_train_only")},
+           "curve": leg["curve"]}
+    log(f"harness: {json.dumps(rec)}")
+    if not (leg["steps_trained"] == 60
+            and [c["step"] for c in leg["curve"]] == [30, 50, 60]
+            and np.isfinite([leg["test_nll"], leg["unigram_floor_test"]]
+                            ).all() and rec["card"]
+            and rec["cut"] == {"max_steps": 60, "eval_every": 20,
+                               "eval_episodes": 32}
+            and "inside_band" not in rec["verdict"]
+            and rec["jax_episodes"]["episodes"] == 512
+            and np.isfinite(rec["jax_episodes"]["test_nll"])
+            and (root / "best" / f"{tag}.pt").exists()):
+        raise RuntimeError(f"harness: bad leg record {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # the flagship cache recipe through the train CLI, then served
 # ---------------------------------------------------------------------------
 
@@ -2267,12 +2535,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from fewshot_torch.config import Config
+    from fewshot_torch.quality import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     t_start = time.perf_counter()
     card = card_line()
+    if card is None:
+        raise RuntimeError("nvidia-smi did not report the card")
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.device_count()} device(s)")
@@ -2369,6 +2640,24 @@ def main() -> int:
                                          num_layers=4, num_heads=2),
         corpus, dev, "prefix_attn_fwd")
     flash = flash_phase(dev)
+
+    # the training options of slice 12: dropout on A and C (the kernel
+    # route), remat on D, finetune at full width on the V=5000 corpus
+    # (scripts/scale_quality.py's plain_ft_cache_full: B=16, 2 inner steps
+    # at lr 0.05, cell=scan), and one short leg of the quality harness
+    drop_a = dropout_phase(
+        "training_A_dropout", dataclasses.replace(bench, steps_per_call=10),
+        corpus, dev, layer_step, persistent=layer_pair)
+    drop_c = dropout_phase(
+        "training_C_dropout", cache, scale, dev,
+        {**layer_step, "head_ce_fwd": 1, "head_ce_bwd": 1},
+        persistent=layer_pair)
+    remat_d = remat_phase(tfm_d, scale, dev)
+    finetune = finetune_phase(
+        dataclasses.replace(cache, support_mode="finetune", cell="scan",
+                            batch_size=16, inner_steps=2, inner_lr=0.05,
+                            cache_resp_floor=0.0), scale, dev, tmp / "ck_ft")
+    harness = harness_phase(tmp / "scale_lyrics", tmp)
 
     # the width repairs: kernels 1-2 past their former limits, kernels 7-9
     # at head widths 24, 192, 256 (E = 2 hd) at the query stream's shape
@@ -2574,6 +2863,12 @@ def main() -> int:
                           for hd in WIDE_HD])
         rec["launches_cli_legs"] = {
             leg: legs[leg]["launches"][name] for leg in legs}
+        rec["launches_slice12"] = {     # per train step; finetune: total
+            "training_A_dropout": drop_a["launches_per_step"][name],
+            "training_C_dropout": drop_c["launches_per_step"][name],
+            "training_D_no_remat": remat_d["no_remat"]["launches"][name],
+            "training_D_remat": remat_d["remat"]["launches"][name],
+            "finetune_phase": finetune["launches"][name]}
         midi_keys = ([f"midi_layer{key[5:]}_t{t}" for t in (
             midi.max_len, midi.max_len - 1)] if key.startswith("layer")
             else [f"midi_stack_t{midi.max_len}"] if key == "stack"
@@ -2612,6 +2907,7 @@ def main() -> int:
                               ("float32", torch.float32))}
         kernels.append(rec)
     kernels[-3]["flash_route"] = flash
+    log(f"harness leg: {json.dumps(harness)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -291,14 +291,8 @@ def evaluate_main(argv=None) -> None:
         if (k, q) != (cfg.support_size, cfg.query_size):
             sys.exit(f"eval set was built for K={k} Q={q}, config has "
                      f"K={cfg.support_size} Q={cfg.query_size}")
-        step = training.make_fed_eval_step(cfg)
-        b = cfg.batch_size
-        # every batch's pair added on the device, one read at the end
-        stats = [torch.stack(step(params, eps.gather_episode(
-            data, ids[lo:lo + b], arts[lo:lo + b], k, q)))
-            for lo in range(0, len(ids), b)]
-        total, count = torch.stack(stats).sum(dim=0).tolist()
-        nll = total / max(count, 1.0)
+        nll = training.evaluate_episode_set(cfg, params, data, ids, arts, k,
+                                            q)
         print(f"eval_set_nll_per_token={nll:.6f} "
               f"({len(ids)} fixed episodes from {args.eval_set})",
               flush=True)

@@ -1,25 +1,31 @@
 """Language-model head, losses, episodic conditioning (LSTM and
 transformer) and the neural-cache head.
 
-Port of ``fewshot/models/lm.py`` but the finetune variant: ``init_lm`` with
+Port of ``fewshot/models/lm.py``: ``init_lm`` with
 the same parameter tree (cache parameters included), ``embed``, the
 embedding fold ``_lstm_embed``, ``head_logits`` with its [H, V] pre-contract
 gate, the fused head ``fused_head_eligible`` / ``head_lse_target`` (kernels
 5 and 6, ``ops/head_ce.py``), ``lm_logits``, ``token_nll`` (both branches),
 ``sequence_nll``, ``shift_targets``, ``lm_nll_stats``, ``support_state``,
 the cache head (``support_counts``, ``cache_posterior_parts``,
-``dynamic_cache_target_logp``, ``support_log_cache``, ``cache_token_nll``,
-``lm_target_logp``, ``cache_mix_stats``) and ``episodic_nll_stats`` for
-``state``, ``mean_state`` and ``none``, with and without the cache and the
-fused head, for both backbones (the transformer's support prefix runs
-through ``models/transformer.py``'s prefix forward).  Every matmul that the
+``take_targets``, ``dynamic_cache_target_logp``, ``support_log_cache``,
+``cache_token_nll``, ``lm_target_logp``, ``cache_mix_stats``), train-mode
+``dropout``, and ``episodic_nll_stats`` for ``state``, ``mean_state``,
+``none`` and ``finetune``, with and without the cache and the fused
+head, for both backbones (the transformer's support prefix runs through
+``models/transformer.py``'s prefix forward).  Every matmul that the
 JAX code runs at the compute dtype with fp32 accumulation goes through
 ``models.lstm.matmul_f32``, which reproduces it, gradients included (the
 grad of a rounded operand is rounded to the compute dtype, as JAX's dot
-transpose does); ``stop_gradient`` is ``detach``.  The finetune variant,
-dropout in training and the transformer's ``remat`` are later slices of the
-port and raise ``NotImplementedError``.  ``cache_mixed_logp`` is the cache
-head's mixture over the vocabulary, which sampling draws from.
+transpose does); ``stop_gradient`` is ``detach``.  ``cache_mixed_logp`` is
+the cache head's mixture over the vocabulary, which sampling draws from.
+
+Dropout masks come from a ``torch.Generator`` (the train state's, after the
+episode draw) in the JAX call order: the embeddings, then the pre-head
+hidden states.  The finetune variant (``finetune_episodic_nll_stats``)
+adapts one parameter copy per episode with ``torch.func``: ``vmap`` over
+the episodes of ``grad`` of the support loss through ``functional_call``,
+so each routing predicate sees one episode's rows, as under JAX's vmap.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call, grad, vmap
 
 from fewshot_torch.device import resolve_device
 from fewshot_torch.models import lstm as lstm_mod
@@ -86,20 +93,27 @@ class LM(nn.Module):
                             ("cache_calib", cache_calib)):
             setattr(self, name, None if group is None else ParamGroup(**group))
 
+    def forward(self, fn, *args, **kwargs):
+        """fn(self, *args, **kwargs): lets ``torch.func.functional_call``
+        run any function of this module under substituted tensors."""
+        return fn(self, *args, **kwargs)
+
 
 def compute_dtype(cfg) -> torch.dtype:
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else torch.float32
 
 
 def check_supported(cfg) -> None:
-    """Raise for the configurations that later slices of the port add."""
-    if cfg.model == "transformer" and cfg.remat:
-        raise NotImplementedError(
-            "remat=True (activation checkpointing) is not ported yet (a "
-            "later slice)")
-    if cfg.support_mode == "finetune":
-        raise NotImplementedError(
-            "support_mode='finetune' is not ported yet (a later slice)")
+    """Raise for finetune over a backbone that launches kernels: the outer
+    gradient differentiates the inner one, and the kernels' backward has
+    no derivative (the JAX package's outer grad fails there as well, in
+    the Pallas call's JVP).  Use cell='scan' (flash=False)."""
+    if cfg.support_mode == "finetune" and (
+            (cfg.model == "lstm" and cfg.cell == "pallas")
+            or (cfg.model == "transformer" and cfg.flash)):
+        raise ValueError(
+            "support_mode='finetune' needs the plain backbone (cell='scan', "
+            "flash=False): the kernels' backward has no derivative")
 
 
 def _vocab(params: LM, cfg) -> int:
@@ -212,25 +226,45 @@ def embed(params: LM, tokens: torch.Tensor) -> torch.Tensor:
     return params.embed[tokens]
 
 
-def _lstm_embed(params: LM, tokens: torch.Tensor, cfg):
+def dropout(x: torch.Tensor, rate: float, src) -> torch.Tensor:
+    """Inverted dropout; the identity when rate <= 0 or src is None (eval).
+
+    src: a generator to draw the keep mask from (u < 1 - rate, as
+    jax.random.bernoulli), or the bool keep mask itself."""
+    if src is None or rate <= 0.0:
+        return x
+    keep = (src if isinstance(src, torch.Tensor) else
+            torch.rand(x.shape, generator=src, device=x.device) < 1.0 - rate)
+    return torch.where(keep, x / (1.0 - rate), x.new_zeros(()))
+
+
+def _drop_sources(drop):
+    """(embedding side, hidden side) of a forward's dropout source: one
+    generator draws both masks in turn; finetune passes a pair of masks."""
+    return drop if isinstance(drop, tuple) else (drop, drop)
+
+
+def _lstm_embed(params: LM, tokens: torch.Tensor, cfg, drop_in=None):
     """(x, zx0) for the LSTM backbone, folding the embedding into the
-    layer-0 input projection when eligible (evaluation: no dropout).
+    layer-0 input projection when eligible.
 
     zx0 = onehot @ (embed @ Wx_0) never materializes the [rows, E]
     activations.  Eligible when V is small (below the one-hot threshold
-    and the FLOP crossover E*4H/(4H-E)) and rows >= 512.  The one-hot
-    product picks rows of the [V, 4H] table exactly, so it is a gather."""
+    and the FLOP crossover E*4H/(4H-E)), rows >= 512 and the embedding
+    dropout is inactive.  The one-hot product picks rows of the [V, 4H]
+    table exactly, so it is a gather."""
     table = params.embed
     v = table.shape[0]
     wx0 = params.lstm[0].wx
     e, four_h = wx0.shape
     rows = math.prod(tokens.shape)
     dt = compute_dtype(cfg)
-    if (v <= ONEHOT_VOCAB_MAX and four_h > e
+    drop_active = drop_in is not None and cfg.dropout > 0
+    if (not drop_active and v <= ONEHOT_VOCAB_MAX and four_h > e
             and v < (e * four_h) // (four_h - e) and rows >= 512):
         w = matmul_f32(table, wx0, dt)                        # [V, 4H]
         return None, w.to(dt).float()[tokens]                 # [.., 4H]
-    return embed(params, tokens), None
+    return dropout(embed(params, tokens), cfg.dropout, drop_in), None
 
 
 def shift_targets(tokens: torch.Tensor, lengths: torch.Tensor):
@@ -242,36 +276,34 @@ def shift_targets(tokens: torch.Tensor, lengths: torch.Tensor):
     return tokens[..., :-1], tokens[..., 1:], mask
 
 
-def _check_dropout(cfg, eval_mode: bool) -> None:
-    if not eval_mode and cfg.dropout > 0:
-        raise NotImplementedError(
-            "dropout > 0 in training is not ported yet (a later slice)")
-
-
 def lm_logits(params: LM, tokens: torch.Tensor, cfg,
               mask: torch.Tensor | None = None, state=None,
               eval_mode: bool = False, with_hidden: bool = False,
-              no_head: bool = False):
+              no_head: bool = False, drop=None):
     """tokens [B, T] -> (logits [B, T, V] fp32, final per-layer state; None
     for the transformer, which decodes with its KV cache).
 
-    with_hidden=True also returns the pre-head hidden states (the cache
-    gate's input); no_head=True skips the head and returns (None, state,
-    hidden), for the fused head+CE path.  eval_mode: the caller will not
-    differentiate (admits the forward-only fused stack, as in the JAX
-    package).  No dropout: train mode with cfg.dropout > 0 raises."""
+    with_hidden=True also returns the (post-dropout) pre-head hidden
+    states (the cache gate's input); no_head=True skips the head and
+    returns (None, state, hidden), for the fused head+CE path.  eval_mode:
+    the caller will not differentiate (admits the forward-only fused
+    stack, as in the JAX package).  drop: None (no dropout), or the source
+    of the train-mode dropout on the embeddings and the hidden states
+    (``dropout``, ``_drop_sources``), active when cfg.dropout > 0."""
     check_supported(cfg)
-    _check_dropout(cfg, eval_mode)
+    drop_in, drop_out = _drop_sources(drop)
     if cfg.model == "lstm":
-        x, zx0 = _lstm_embed(params, tokens, cfg)
+        x, zx0 = _lstm_embed(params, tokens, cfg, drop_in)
         hidden, state = lstm_mod.lstm_forward(
             params.lstm, x, mask=mask, state=state,
             compute_dtype=compute_dtype(cfg), cell=cfg.cell,
             eval_mode=eval_mode, zx0=zx0)
     else:
-        hidden = tfm_mod.transformer_forward(params.transformer,
-                                             embed(params, tokens), mask, cfg)
+        x = dropout(embed(params, tokens), cfg.dropout, drop_in)
+        hidden = tfm_mod.transformer_forward(params.transformer, x, mask,
+                                             cfg)
         state = None
+    hidden = dropout(hidden, cfg.dropout, drop_out)
     if no_head:
         return None, state, hidden
     if with_hidden:
@@ -356,6 +388,23 @@ def cache_posterior_parts(params: LM, support: torch.Tensor,
     return phi, total, s, p_global
 
 
+def take_targets(x: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """x.gather(-1, targets) for x [rows, V] and targets [rows, T], with a
+    backward that gives the same bits on every run.
+
+    A gather's backward adds into x's gradient with atomics on the card,
+    so a token repeated in a row sums its gradients in a varying order.
+    Here only each token's first place in its row reads x, the other
+    places copy that value through a [rows, T, T] equality product, and
+    the gradient of a repeated token is summed over its places by a
+    reduction; the atomics then add exact zeros beside one sum.  x must be
+    finite (the products multiply it by zero)."""
+    eq = targets[:, :, None] == targets[:, None, :]            # [rows, T, T]
+    first = ~torch.tril(eq, -1).any(dim=-1)                     # [rows, T]
+    own = x.gather(-1, targets) * first
+    return ((eq & first[:, None, :]).to(x.dtype) * own[:, None, :]).sum(-1)
+
+
 def dynamic_cache_target_logp(phi, total, s, p_global, targets, mask):
     """[rows, T] cache-branch log-prob at each target with the query's own
     raw prefix counts added (cache_dynamic):
@@ -368,7 +417,7 @@ def dynamic_cache_target_logp(phi, total, s, p_global, targets, mask):
     m = mask.float()
     c_pre = ((eq & tri).float() * m[:, None, :]).sum(dim=-1)   # [rows, T]
     plen = torch.cumsum(m, dim=-1) - m                         # exclusive
-    phi_t = phi.gather(-1, targets)
+    phi_t = take_targets(phi, targets)
     return (torch.log(phi_t + c_pre + s * p_global[targets])
             - torch.log(total + plen + s))
 
@@ -420,7 +469,7 @@ def cache_token_nll(params: LM, logits, hidden, log_cache, targets, mask,
         hot = torch.nn.functional.one_hot(targets, v).float()
         cache_t = torch.einsum("rtv,rv->rt", hot, log_cache)
     else:
-        cache_t = log_cache.gather(-1, targets)
+        cache_t = take_targets(log_cache, targets)
     return cache_mix_stats(params, hidden, lm_t, cache_t, mask, lm_aux,
                            resp_floor)
 
@@ -456,11 +505,11 @@ def sequence_nll(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def lm_nll_stats(params: LM, tokens: torch.Tensor, lengths: torch.Tensor,
-                 cfg, eval_mode: bool = False):
+                 cfg, eval_mode: bool = False, drop=None):
     """(sum CE, token count) on a [B, T] batch of songs."""
     inputs, targets, mask = shift_targets(tokens, lengths)
     logits, _ = lm_logits(params, inputs, cfg, mask=mask,
-                          eval_mode=eval_mode)
+                          eval_mode=eval_mode, drop=drop)
     return token_nll(logits, targets, mask)
 
 
@@ -501,7 +550,107 @@ def support_state(params: LM, support: torch.Tensor,
     return state
 
 
-def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False):
+def _inner_params(params: LM) -> dict:
+    """The parameters the support loss reaches, by name: all but the cache
+    head's, which get no inner gradient (so the adapted cache groups are
+    the meta-parameters')."""
+    return {n: p for n, p in params.named_parameters()
+            if not n.startswith("cache_")}
+
+
+def _adapt(params: LM, cfg, support: torch.Tensor,
+           support_len: torch.Tensor, first_order: bool) -> dict:
+    """One episode's inner SGD (run under vmap): cfg.inner_steps steps of
+    lr cfg.inner_lr on the mean NLL of its support songs [K, L], from the
+    shared parameters.  first_order detaches the inner gradients (FOMAML);
+    otherwise the outer gradient runs through them (MAML).  Returns the
+    adapted tensors by name."""
+    def support_loss(p, sup, slen):
+        inputs, targets, mask = shift_targets(sup, slen)
+        logits, _ = functional_call(params, p, (lm_logits, inputs, cfg),
+                                    {"mask": mask})
+        return sequence_nll(logits, targets, mask)
+
+    p = _inner_params(params)
+    for _ in range(cfg.inner_steps):
+        g = grad(support_loss)(p, support, support_len)
+        if first_order:
+            g = {k: v.detach() for k, v in g.items()}
+        p = {k: w - cfg.inner_lr * g[k] for k, w in p.items()}
+    return p
+
+
+def finetune_adapt(params: LM, support: torch.Tensor,
+                   support_len: torch.Tensor, cfg) -> dict:
+    """Per-episode adapted parameters, stacked [B, ...] by name (the inner
+    loop of ``finetune_episodic_nll_stats``; sampling's adaptation).  Runs
+    under no_grad: torch.func.grad still differentiates the support loss,
+    and nothing outside keeps a graph."""
+    with torch.no_grad():
+        return vmap(lambda s, sl: _adapt(params, cfg, s, sl, True))(
+            support, support_len)
+
+
+def finetune_episodic_nll_stats(params: LM, ep, cfg, drop=None,
+                                lm_aux: float = 0.0,
+                                resp_floor: float = 0.0):
+    """(sum CE over query tokens, count) of the finetune variant: per
+    episode, cfg.inner_steps SGD steps on its support songs' LM loss from
+    the shared parameters (``_adapt``), then its query songs scored under
+    the adapted parameters (``fewshot/models/lm.py`` 667-744).
+
+    The B episodes adapt in one batched program (vmap), each on its own
+    copy, so every routing predicate (the embedding fold's rows >= 512)
+    sees one episode's rows, as under JAX's vmap.  The query pass is the
+    dense-logits path (no fused head), in train mode, with its own
+    dropout masks drawn from `drop` before the vmap.  With the cache head
+    the mixture is scored outside the vmap: its parameters and the
+    support counts are the same for the adapted and the shared model.
+    Runs under no_grad too (evaluation): torch.func.grad ignores it."""
+    b, q_, l_ = ep.query.shape
+    v_total = _vocab(params, cfg)
+    masks = ()
+    if drop is not None and cfg.dropout > 0:
+        d = cfg.hidden_dim if cfg.model == "lstm" else cfg.embed_dim
+        masks = tuple(
+            torch.rand((b, q_, l_ - 1, width), generator=drop,
+                       device=ep.query.device) < 1.0 - cfg.dropout
+            for width in (cfg.embed_dim, d))
+
+    def one_episode(sup, slen, qry, qlen, *keep):
+        p = _adapt(params, cfg, sup, slen, cfg.first_order)
+        inputs, targets, mask = shift_targets(qry, qlen)
+        logits, _, hidden = functional_call(
+            params, p, (lm_logits, inputs, cfg),
+            {"mask": mask, "with_hidden": True, "drop": keep or None})
+        return lm_target_logp(logits, targets), hidden
+
+    lm_t, hidden = vmap(one_episode)(ep.support, ep.support_len, ep.query,
+                                     ep.query_len, *masks)
+    _, targets, mask = shift_targets(ep.query, ep.query_len)
+    flat_t = targets.reshape(b * q_, l_ - 1)
+    flat_m = mask.reshape(b * q_, l_ - 1)
+    lm_t = lm_t.reshape(b * q_, l_ - 1)
+    if not cfg.support_cache:
+        m = flat_m.float()
+        return -(lm_t * m).sum(), m.sum()
+    hidden = hidden.reshape(b * q_, l_ - 1, -1)
+    if cfg.cache_dynamic:
+        phi, total, s, p_global = cache_posterior_parts(
+            params, ep.support, ep.support_len, v_total)
+        cache_t = dynamic_cache_target_logp(
+            phi.repeat_interleave(q_, dim=0),
+            total.repeat_interleave(q_, dim=0), s, p_global, flat_t, flat_m)
+    else:
+        cache_t = take_targets(support_log_cache(
+            params, ep.support, ep.support_len,
+            v_total).repeat_interleave(q_, dim=0), flat_t)
+    return cache_mix_stats(params, hidden, lm_t, cache_t, flat_m, lm_aux,
+                           resp_floor)
+
+
+def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False,
+                       drop=None):
     """(sum CE over query tokens, query token count) for a meta-batch.
 
     LSTM: the support state (support_mode state or mean_state; none for an
@@ -515,10 +664,17 @@ def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False):
     cache_resp_floor to 0, so every reported NLL is the pure mixture.  In
     mean_state mode the support pass's top-layer outputs are unused, so its
     gradient arrives only through the final state (mean, then repeat).
+    drop: the train-mode dropout's generator (None: no dropout), applied
+    to the query side only.  support_mode="finetune" runs
+    ``finetune_episodic_nll_stats`` (eval_mode is not forwarded: its inner
+    loop differentiates the support loss either way).
     """
     check_supported(cfg)
     lm_aux = 0.0 if eval_mode else cfg.cache_lm_aux
     resp_floor = 0.0 if eval_mode else cfg.cache_resp_floor
+    if cfg.support_mode == "finetune":
+        return finetune_episodic_nll_stats(params, ep, cfg, drop, lm_aux,
+                                           resp_floor)
     b, q_, l_ = ep.query.shape
     inputs, targets, mask = shift_targets(ep.query, ep.query_len)
     flat_inputs = inputs.reshape(b * q_, l_ - 1)
@@ -529,16 +685,18 @@ def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False):
     conditioned = cfg.support_mode in ("state", "mean_state")
     hidden = logits = None
     if cfg.model == "transformer" and conditioned:
-        _check_dropout(cfg, eval_mode)
+        drop_in, drop_out = _drop_sources(drop)
         # the K support songs, concatenated, form each episode's prefix
         _, k_, sl = ep.support.shape
         prefix = ep.support.reshape(b, k_ * sl)
         prefix_mask = (torch.arange(sl, device=prefix.device)
                        < ep.support_len[..., None]).reshape(b, k_ * sl)
-        q_emb = embed(params, flat_inputs).reshape(b, q_, l_ - 1, -1)
+        q_emb = dropout(embed(params, flat_inputs), cfg.dropout, drop_in)
         hidden = tfm_mod.transformer_prefix_forward(
-            params.transformer, embed(params, prefix), prefix_mask, q_emb,
-            mask, cfg).reshape(b * q_, l_ - 1, -1)
+            params.transformer, embed(params, prefix), prefix_mask,
+            q_emb.reshape(b, q_, l_ - 1, -1), mask, cfg)
+        hidden = dropout(hidden.reshape(b * q_, l_ - 1, -1), cfg.dropout,
+                         drop_out)
         if not fused:
             logits = head_logits(params, hidden, cfg)
     else:
@@ -553,10 +711,12 @@ def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False):
             logits, _, hidden = lm_logits(params, flat_inputs, cfg,
                                           mask=flat_mask, state=state,
                                           eval_mode=eval_mode,
-                                          with_hidden=True, no_head=fused)
+                                          with_hidden=True, no_head=fused,
+                                          drop=drop)
         else:
             logits, _ = lm_logits(params, flat_inputs, cfg, mask=flat_mask,
-                                  state=state, eval_mode=eval_mode)
+                                  state=state, eval_mode=eval_mode,
+                                  drop=drop)
 
     def lm_branch():
         if fused:
@@ -579,7 +739,7 @@ def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False):
                                       v_total).repeat_interleave(q_, dim=0)
         if fused:
             return cache_mix_stats(params, hidden, lm_branch(),
-                                   log_cache.gather(-1, flat_targets),
+                                   take_targets(log_cache, flat_targets),
                                    flat_mask, lm_aux, resp_floor)
         return cache_token_nll(params, logits, hidden, log_cache,
                                flat_targets, flat_mask, lm_aux, resp_floor)

@@ -15,8 +15,11 @@ the JAX code's (``transformer.py:79-135``).  ``jax.nn.gelu`` is the tanh
 approximation.  ``transformer_prefix_forward`` does not compute the last
 layer's prefix-stream self-attention, output projection and MLP: they feed
 nothing (XLA deletes them from the JAX program), so the outputs and grads
-are the same.  ``cfg.remat`` (activation checkpointing) is not ported
-(``lm.check_supported`` raises).
+are the same.  ``cfg.remat`` checkpoints each block
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX package): its
+activations are recomputed in the backward, the attention kernels'
+forward included, which are deterministic, so remat changes no bit of the
+blocks' gradients.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fewshot_torch.models.lstm import matmul_f32
 from fewshot_torch.ops.attention import causal_attention
@@ -129,16 +133,34 @@ def _block_out(layer, h, attn, cfg):
     return h + _mlp(layer, h, cfg).to(dt)
 
 
+def _remat(block, cfg):
+    """block, or block under activation checkpointing when cfg.remat and
+    a backward can follow.  The blocks draw no random numbers, so the RNG
+    state is not stashed.  Inside a torch.func transform (finetune's
+    per-episode passes) the block runs plainly: torch.func has no saved
+    tensor hooks, and checkpointing changes memory, not values."""
+    if not (cfg.remat and torch.is_grad_enabled()) or \
+            torch._C._functorch.maybe_current_level() is not None:
+        return block
+    return lambda *args: checkpoint(block, *args, use_reentrant=False,
+                                    preserve_rng_state=False)
+
+
 def transformer_forward(params: Transformer, x: torch.Tensor,
                         mask: torch.Tensor | None, cfg) -> torch.Tensor:
     """x [B, T, E] embeddings -> hidden [B, T, E] (pre-head)."""
     b, t, _ = x.shape
     positions = torch.arange(t, device=x.device).expand(b, t)
+
+    def block(h, layer):
+        q, k, v = _qkv(layer, h, positions, cfg)
+        return _block_out(layer, h,
+                          causal_attention(q, k, v, mask, cfg.flash), cfg)
+
+    block = _remat(block, cfg)
     h = x.to(_dt(cfg))
     for layer in params.layers:
-        q, k, v = _qkv(layer, h, positions, cfg)
-        h = _block_out(layer, h, causal_attention(q, k, v, mask, cfg.flash),
-                       cfg)
+        h = block(h, layer)
     return rmsnorm(h, params.ln_f)
 
 
@@ -166,12 +188,11 @@ def transformer_prefix_forward(params: Transformer, prefix_x: torch.Tensor,
     pos_p = torch.arange(p, device=dev).expand(b, p)
     # query songs restart their positions after the (padded) prefix
     pos_q = (torch.arange(lq, device=dev) + p).expand(b * q_, lq)
-    hp = prefix_x.to(dt)
-    hq = query_x.to(dt).reshape(b * q_, lq, e)
     last = len(params.layers) - 1
-    for i, layer in enumerate(params.layers):
+
+    def block(hp, hq, layer, prefix_out: bool):
         pq, pk, pv = _qkv(layer, hp, pos_p, cfg)
-        if i < last:        # the last layer's prefix stream feeds nothing
+        if prefix_out:      # the last layer's prefix stream feeds nothing
             hp = _block_out(layer, hp,
                             _self_attention(pq, pk, pv, prefix_mask, cfg),
                             cfg)
@@ -179,7 +200,13 @@ def transformer_prefix_forward(params: Transformer, prefix_x: torch.Tensor,
                       for x in _qkv(layer, hq, pos_q, cfg))
         attn = episodic_attention(qq, qk, qv, pk, pv, query_mask,
                                   prefix_mask, cfg.prefix_flash)
-        hq = _block_out(layer, hq, attn.reshape(b * q_, lq, e), cfg)
+        return hp, _block_out(layer, hq, attn.reshape(b * q_, lq, e), cfg)
+
+    block = _remat(block, cfg)
+    hp = prefix_x.to(dt)
+    hq = query_x.to(dt).reshape(b * q_, lq, e)
+    for i, layer in enumerate(params.layers):
+        hp, hq = block(hp, hq, layer, i < last)
     return rmsnorm(hq, params.ln_f).reshape(b, q_, lq, e)
 
 

@@ -1,11 +1,12 @@
 """Few-shot generation: support-primed top-k / nucleus sampling.
 
-Port of ``fewshot/sampling.py`` without the finetune variant:
-``filtered_sample``, the decode loop, ``sample_lstm``,
-``sample_transformer`` (the support prefix prefilled into a KV cache
-through the prefix-attention kernels, then one cached step per token) and
-``generate``.  With the cache head (``support_cache``) every step samples
-from the same gated mixture the model is scored under: the static cache's
+Port of ``fewshot/sampling.py``: ``filtered_sample``, the decode loop,
+``sample_lstm``, ``sample_transformer`` (the support prefix prefilled into
+a KV cache through the prefix-attention kernels, then one cached step per
+token) and ``generate``, the finetune variant included (each row adapts
+its own parameters on its support set, then decodes under them).  With
+the cache head (``support_cache``) every step samples from the same gated
+mixture the model is scored under: the static cache's
 support posterior, or (``cache_dynamic``) that posterior with the row's
 own emitted tokens counted in, as the continuous-cache NLL counts the
 query's prefix.  ``token_masks`` [P, V] (the MIDI event grammar,
@@ -30,6 +31,7 @@ cannot be reproduced, so the parity tests compare greedy decoding.
 from __future__ import annotations
 
 import torch
+from torch.func import functional_call
 
 from fewshot_torch.data import midi as midi_mod
 from fewshot_torch.data.vocab import BOS, EOS, PAD
@@ -265,10 +267,34 @@ def generate(params, support: torch.Tensor, support_len: torch.Tensor,
     i's continuation depends only on generators[i].  temperature: optional
     scalar or [B] overriding cfg.temperature.  early_exit stops once every
     row has emitted EOS; the output is the same either way.  token_masks:
-    optional [P, V] bool per-phase legal tokens (the MIDI grammar)."""
+    optional [P, V] bool per-phase legal tokens (the MIDI grammar).
+
+    support_mode="finetune": the inner SGD adapts one parameter copy per
+    row on its support set (``lm.finetune_adapt``, before inference mode:
+    it differentiates), then each row decodes alone under its own copy, a
+    loop over the rows (a row's tokens still depend on its generator
+    only)."""
     lm_mod.check_supported(cfg)
     n = n_tokens if n_tokens is not None else cfg.sample_tokens
     fn = sample_lstm if cfg.model == "lstm" else sample_transformer
+    if cfg.support_mode != "finetune":
+        with torch.inference_mode():
+            return fn(params, support, support_len, generators, cfg, n,
+                      temperature, early_exit, token_masks)
+    b = support.shape[0]
+    if len(generators) != b:
+        raise ValueError(f"need one generator per row ({b}), got "
+                         f"{len(generators)}")
+    adapted = lm_mod.finetune_adapt(params, support, support_len, cfg)
+    temps = (None if temperature is None else torch.as_tensor(
+        temperature, dtype=torch.float32).expand(b))
+    rows = []
     with torch.inference_mode():
-        return fn(params, support, support_len, generators, cfg, n,
-                  temperature, early_exit, token_masks)
+        for i in range(b):
+            rows.append(functional_call(
+                params, {k: v[i] for k, v in adapted.items()},
+                (fn, support[i:i + 1], support_len[i:i + 1],
+                 generators[i:i + 1], cfg, n,
+                 None if temps is None else temps[i:i + 1], early_exit,
+                 token_masks)))
+    return torch.cat(rows)

@@ -28,8 +28,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from fewshot_torch.data.episodes import (CorpusOnDevice, sample_episode,
-                                         sample_lm_batch)
+from fewshot_torch.data.episodes import (CorpusOnDevice, gather_episode,
+                                         sample_episode, sample_lm_batch)
 from fewshot_torch.device import resolve_device
 from fewshot_torch.models import lm as lm_mod
 
@@ -134,15 +134,19 @@ def _loss_stats(params, cfg, data: CorpusOnDevice, split_artists, gen,
                 batch_size: int, train: bool = False):
     """Sample a batch/episodes on the device and return (ce_sum, count).
 
-    train=False flags eval_mode downstream (the forward-only fused stack)."""
+    train=False flags eval_mode downstream (the forward-only fused stack).
+    In training with cfg.dropout > 0 the dropout masks are drawn from gen
+    after the episodes, so the generator's state (the checkpoint's
+    rng.npz) carries both streams."""
+    drop = gen if (train and cfg.dropout > 0) else None
     if cfg.task == "episodic":
         ep = sample_episode(gen, data, split_artists, batch_size,
                             k=cfg.support_size, q=cfg.query_size)
         return lm_mod.episodic_nll_stats(params, ep, cfg,
-                                         eval_mode=not train)
+                                         eval_mode=not train, drop=drop)
     tokens, lengths = sample_lm_batch(gen, data, split_artists, batch_size)
     return lm_mod.lm_nll_stats(params, tokens, lengths, cfg,
-                               eval_mode=not train)
+                               eval_mode=not train, drop=drop)
 
 
 def global_norm(grads: dict) -> torch.Tensor:
@@ -197,9 +201,11 @@ def make_fed_train_step(cfg):
     apply = _make_apply(cfg, make_optimizer(cfg))
 
     def train_step(state: TrainState, ep):
+        drop = state.gen if cfg.dropout > 0 else None
         grads, total, count = _grads(
             state.params,
-            lambda: lm_mod.episodic_nll_stats(state.params, ep, cfg))
+            lambda: lm_mod.episodic_nll_stats(state.params, ep, cfg,
+                                              drop=drop))
         return apply(state, grads, total, count)
     return train_step
 
@@ -247,6 +253,21 @@ def evaluate_fed(cfg, params, pipe, num_episodes: int | None = None,
     batch = getattr(pipe, "batch", cfg.batch_size)
     stats = [torch.stack(step(params, next(pipe)))
              for _ in range(max(1, n // batch))]
+    total, count = torch.stack(stats).sum(dim=0).tolist()
+    return total / max(count, 1.0)
+
+
+def evaluate_episode_set(cfg, params, data: CorpusOnDevice, song_ids,
+                         artists, k: int, q: int) -> float:
+    """Average query NLL/token over a fixed episode set (``song_ids``
+    [N, k+q], ``artists`` [N], as ``data.episodes.load_episode_set`` reads
+    them), cfg.batch_size episodes a batch.  Every batch's pair is added on
+    the device and one pair is read at the end."""
+    step = make_fed_eval_step(cfg)
+    b = cfg.batch_size
+    stats = [torch.stack(step(params, gather_episode(
+        data, song_ids[lo:lo + b], artists[lo:lo + b], k, q)))
+        for lo in range(0, len(song_ids), b)]
     total, count = torch.stack(stats).sum(dim=0).tolist()
     return total / max(count, 1.0)
 

@@ -9,7 +9,9 @@ temporary directory; the CLI trains a small LSTM with the full cache stack
   and sampler generator state, bit for bit;
 * 2N steps in one run give the same parameters (``torch.equal``) as N
   steps, a stop, and N more resumed from the checkpoint ("restored
-  checkpoint at step N"): the restored generator draws the same episodes;
+  checkpoint at step N"): the restored generator draws the same episodes,
+  and with dropout 0.1 the same dropout masks (drawn from the same
+  generator after the episodes);
 * a checkpoint of another vocab is refused by ``recover_or_init`` and by
   ``serve_main``; another semantic hyperparameter prints the warning;
 * a resume whose step is not a multiple of steps_per_call exits with the
@@ -111,11 +113,13 @@ def test_save_restore_round_trip_is_bit_identical(corpus_dir, tmp_path):
     assert not [p for p in tmp_path.iterdir() if p.name.startswith(".")]
 
 
-def test_resume_equals_unbroken_run(corpus_dir, tmp_path, capsys):
-    _train(corpus_dir, tmp_path / "one", steps=8)
-    _train(corpus_dir, tmp_path / "two", steps=4)
+def _resume_equals_unbroken(corpus_dir, tmp_path, capsys, *extra):
+    """8 steps in one run and 4 + 4 resumed: the same states, bit for bit
+    (returned)."""
+    _train(corpus_dir, tmp_path / "one", *extra, steps=8)
+    _train(corpus_dir, tmp_path / "two", *extra, steps=4)
     capsys.readouterr()
-    _train(corpus_dir, tmp_path / "two", steps=8)
+    _train(corpus_dir, tmp_path / "two", *extra, steps=8)
     assert "restored checkpoint at step 4" in capsys.readouterr().out
     cfg = _cfg(corpus_dir)
     n_vocab = len(PackedCorpus.load(corpus_dir).vocab)
@@ -127,6 +131,23 @@ def test_resume_equals_unbroken_run(corpus_dir, tmp_path, capsys):
         states.append(_flat_state(st))
     for k in states[0]:
         assert torch.equal(states[0][k], states[1][k]), k
+    return states[0]
+
+
+def test_resume_with_dropout_equals_unbroken_run(corpus_dir, tmp_path,
+                                                 capsys):
+    """dropout 0.1: the masks come from the checkpointed generator, so a
+    resumed run is the unbroken one; and they do act (another trajectory
+    than dropout 0)."""
+    with_drop = _resume_equals_unbroken(corpus_dir, tmp_path / "d", capsys,
+                                        "dropout=0.1")
+    without = _resume_equals_unbroken(corpus_dir, tmp_path / "n", capsys)
+    assert not torch.equal(with_drop["p:embed"], without["p:embed"])
+    assert not torch.equal(with_drop["gen"], without["gen"])
+
+
+def test_resume_equals_unbroken_run(corpus_dir, tmp_path, capsys):
+    _resume_equals_unbroken(corpus_dir, tmp_path, capsys)
     # checkpoints at 2, 4, 6, 8 in one run: the newest three are kept
     assert ckpt.steps(tmp_path / "one") == [4, 6, 8]
     lines = [json.loads(x) for x in

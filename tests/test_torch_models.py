@@ -10,18 +10,21 @@ Pallas kernels tests/test_pallas.py pins.
 
 import dataclasses
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from fewshot.config import Config as JConfig
+from fewshot.data.episodes import Episode as JEpisode
 from fewshot.models import lm as jlm
 from fewshot.models import lstm as jlstm
 from fewshot_torch import sampling, serve
-from fewshot_torch.bridge import (load_params, params_from_numpy,
+from fewshot_torch.bridge import (flatten, load_params, params_from_numpy,
                                   params_to_numpy, save_params)
 from fewshot_torch.config import Config
+from fewshot_torch.data.episodes import Episode
 from fewshot_torch.models import lm, lstm
 
 E, H, V = 32, 128, 40
@@ -237,13 +240,32 @@ def test_shift_targets_matches_jax():
                                     dict(support_cache=True),
                                     dict(support_mode="finetune")])
 def test_later_slices_raise(change):
-    """The transformer's remat and finetune raise at init.  The cache head
-    trains, evaluates and now also generates and serves: the decode loop
-    samples from its mixture, static and dynamic."""
+    """Each of the three once raised; now each runs.  The transformer's
+    remat and finetune (cell='scan', inner SGD per episode): the loss and
+    the grads of every parameter equal JAX's on the same weights and
+    episode.  The cache head trains, evaluates, generates and serves: the
+    decode loop samples from its mixture, static and dynamic."""
     cfg = dataclasses.replace(Config(**KW), **change)
     if not cfg.support_cache:
-        with pytest.raises(NotImplementedError):
-            lm.init_lm(cfg, V, torch.Generator().manual_seed(0), "cpu")
+        params = lm.init_lm(cfg, V, torch.Generator().manual_seed(0), "cpu")
+        jcfg = JConfig(**{**KW, **change})
+        rng = np.random.RandomState(4)
+        lens = rng.randint(3, 11, (2, 4))
+        toks = (rng.randint(3, V, (2, 4, 10))
+                * (np.arange(10) < lens[..., None]))
+        arrs = (toks[:, :3], lens[:, :3], toks[:, 3:], lens[:, 3:],
+                np.zeros(2))
+        jep = JEpisode(*(jnp.asarray(a, jnp.int32) for a in arrs))
+        (jt, _), jg = jax.jit(jax.value_and_grad(
+            lambda p: jlm.episodic_nll_stats(p, jep, jcfg), has_aux=True))(
+            jax.tree.map(jnp.asarray, params_to_numpy(params)))
+        total, _ = lm.episodic_nll_stats(
+            params, Episode(*(torch.tensor(a).long() for a in arrs)), cfg)
+        total.backward()
+        _close(total, jt, ATOL * max(1.0, abs(float(jt))))
+        want = flatten(jax.tree.map(np.asarray, jg))
+        for k, p in params.named_parameters():
+            _close(p.grad, want[k], ATOL * max(1.0, np.abs(want[k]).max()))
         return
     params = lm.init_lm(cfg, V, torch.Generator().manual_seed(0), "cpu")
     assert {"cache_gate.w", "cache_gate.b", "cache_prior.u",

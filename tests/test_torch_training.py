@@ -462,18 +462,65 @@ def test_train_step_samples_on_device_and_learns():
 
 
 def test_training_later_slices_raise():
-    """Dropout in training and finetune raise.  An 1100-word model with a
-    128-wide untied head, where the JAX package scores with its fused
-    head+CE kernels, runs both routes: the fused one (cell='pallas', the
-    kernels' twins here) equals the dense one (cell='scan') in value and
-    grads."""
+    """Dropout in training and finetune once raised; now both run.
+    Dropout: with the same keep masks on both sides (both packages'
+    ``dropout`` applying numpy masks in call order) the train-mode loss
+    and grads (the port's kernel route, twins here; JAX's scan cell) equal
+    JAX's, on the 528-row batch where the embedding fold is eligible and
+    dropout must skip it.  Finetune (cell='scan'; the
+    kernel route is refused, as JAX's outer grad fails there): equal to
+    JAX's.  An 1100-word model with a 128-wide untied head, where the JAX
+    package scores with its fused head+CE kernels, runs both routes: the
+    fused one (cell='pallas', the kernels' twins here) equals the dense one
+    (cell='scan') in value and grads."""
+    import jax
+    import jax.numpy as jnp
+    from fewshot.config import Config as JConfig
+    from fewshot.data.episodes import Episode as JEpisode
+    from fewshot.models import lm as jlm
     from fewshot_torch.models import lm
-    params = bridge.params_from_numpy(_params(1, 1), "cpu")
-    ep = _episode(_inputs(), 0)
-    for kw in (dict(dropout=0.1), dict(support_mode="finetune")):
-        cfg = _cfg(dict(num_layers=1, **kw))
-        with pytest.raises(NotImplementedError):
-            lm.episodic_nll_stats(params, ep, cfg)
+    z = _inputs()
+    ep = _episode(z, 0)
+    jep = JEpisode(*(jnp.asarray(z[f"ep0_{f}"], jnp.int32) for f in (
+        "support", "support_len", "query", "query_len", "artist")))
+    shapes = {"jax": [], "port": []}
+
+    def masks(side):
+        def apply(x, rate, src):
+            if src is None or rate <= 0.0:
+                return x
+            rng = np.random.RandomState(len(shapes[side]))
+            shapes[side].append(tuple(int(d) for d in x.shape))
+            keep = rng.rand(*x.shape) < 1.0 - rate
+            if side == "jax":
+                return jnp.where(jnp.asarray(keep), x / (1.0 - rate), 0.0)
+            return torch.where(torch.as_tensor(keep), x / (1.0 - rate),
+                               x.new_zeros(()))
+        return apply
+
+    saved = (jlm.dropout, lm.dropout)
+    jlm.dropout, lm.dropout = masks("jax"), masks("port")
+    try:
+        for kw in (dict(dropout=0.3),
+                   dict(support_mode="finetune", cell="scan",
+                        inner_steps=1, inner_lr=0.1)):
+            kw = {**BASE, "num_layers": 1, **kw}
+            params = bridge.params_from_numpy(_params(1, 1), "cpu")
+            (jt, _), jg = jax.jit(jax.value_and_grad(
+                lambda p: jlm.episodic_nll_stats(
+                    p, jep, JConfig(**{**kw, "cell": "scan"}),
+                    dropout_key=jax.random.PRNGKey(0)),
+                has_aux=True))(jax.tree.map(jnp.asarray, _params(1, 1)))
+            total, _ = lm.episodic_nll_stats(params, ep, Config(**kw),
+                                             drop=torch.Generator())
+            total.backward()
+            _close(total, jt, what="total")
+            want = bridge.flatten(jax.tree.map(np.asarray, jg))
+            for k, p in params.named_parameters():
+                _close(p.grad, want[k], what=k)
+    finally:
+        jlm.dropout, lm.dropout = saved
+    assert shapes["jax"] == shapes["port"] == [(48, 11, E), (48, 11, H)]
     rng = np.random.RandomState(5)
     big = {k: v for k, v in _params(1, 1).items() if k != "out_proj"}
     big["embed"] = (0.3 * rng.randn(1100, E)).astype(np.float32)

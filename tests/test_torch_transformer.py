@@ -11,7 +11,8 @@ fewshot.sampling.
   full cache stack, the dense head with the static cache, the einsum
   attention path, support_mode none (``transformer_forward``, with
   cfg.flash off and on: the port's no-prefix route against JAX's einsum
-  off the TPU, equal at every position the loss reads), and bf16;
+  off the TPU, equal at every position the loss reads), bf16, and remat
+  (``jax.checkpoint`` against ``torch.utils.checkpoint``), fp32 and bf16;
 * 3 train steps with the full cache stack against
   ``fewshot.training.make_fed_train_step``, and the port continuing the
   JAX run from its parameters and Adam state after one step;
@@ -33,7 +34,6 @@ a bf16 rounding (2^-8), which later layers carry: the loss is held to 1e-3
 and the grads to 5e-2.
 """
 
-import dataclasses
 import json
 import os
 import subprocess
@@ -70,6 +70,11 @@ STATS = {
     "none_flash": (dict(support_mode="none", flash=True), REL, REL),
     "state_bf16": (dict(support_mode="state", compute_dtype="bfloat16",
                         **FULL), 1e-3, 5e-2),
+    # remat on both sides (jax.checkpoint; the port's torch.utils.checkpoint)
+    "with_remat_fused_full": (dict(FULL, remat=True), REL, REL),
+    "with_remat_state_bf16": (dict(support_mode="state", remat=True,
+                                   compute_dtype="bfloat16", **FULL),
+                              1e-3, 5e-2),
 }
 GREEDY = ("state", "none")
 
@@ -438,7 +443,20 @@ def test_bridge_round_trip_of_the_transformer(case, tmp_path):
         {k: v.shape for k, v in flat.items()}
 
 
-def test_remat_is_a_later_slice():
-    with pytest.raises(NotImplementedError, match="remat"):
-        lm.init_lm(dataclasses.replace(_cfg(), remat=True), V,
-                   torch.Generator().manual_seed(0), "cpu")
+def test_remat_is_a_later_slice(case):
+    """remat was refused before it was ported; now it runs: the port's
+    remat grads equal its no-remat grads bit for bit on the remat case's
+    weights, and JAX's remat grads within REL."""
+    z, ref = case
+    ep = _episode(z, 0)
+    out = {}
+    for remat in (False, True):
+        params = _params(z, "stats_with_remat_fused_full:")
+        total, _ = lm.episodic_nll_stats(params, ep, _cfg(**FULL,
+                                                          remat=remat))
+        total.backward()
+        out[remat] = {k: p.grad for k, p in params.named_parameters()}
+    want = _sub(ref, "stats_with_remat_fused_full_grad:")
+    for k, g in out[False].items():
+        assert torch.equal(out[True][k], g), k
+        _close(out[True][k], want[k], REL, k)
