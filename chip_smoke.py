@@ -143,6 +143,28 @@ Phases, each of which exits non-zero on failure:
      plain route, layer by layer: the kernel route at most REFEREE_F times
      as far from it as the twins, and the LSTM's state within
      TRAINED_STATE_TOL of the plain route;
+ 15b. the last modules of the JAX package, on the V=5000 corpus: training
+     C on the host episode pipeline (``data/host_pipeline.py``, one fed
+     batch a step) beside the device sampler, 30 timed steps each after 3
+     untimed: the loss falling, kernels 1-2 and 5-6 launched as in
+     training C, the step time, episodes/s and (torch.profiler) the
+     device's busy time and idle share, and the episode copies seen as
+     pinned host-to-device copies on a stream no kernel of the port runs
+     on; ``pipeline: host`` through the train CLI on the flagship recipe
+     (150 steps with a val-pipeline eval and a checkpoint every 50, then
+     resumed in a new process to 200; kernels 3-4 on their persistent
+     route); the same leg to 50 steps as an NCCL world of one (the
+     FEWSHOT_* variables, in this process): torch.distributed on nccl,
+     one all-reduce a step and one an eval, the parameters at step 50 the
+     same bits as the leg's; serving with rows sharded over [cuda:0,
+     cuda:0] (the leg's checkpoint, and serving C's transformer; the two
+     chunks share the card, so they run in turn): every continuation
+     the single-device Generator's at the same chunk size (kernels 3 and
+     7 launched), the share equal to a single batch of twice the rows
+     recorded (gated for the LSTM); the native data tier built by g++
+     here, and a 12,800-song synthetic lyrics corpus packed with
+     native=True and native=False into the same corpus.npz, vocab.json
+     and meta.json bytes;
  16. the MIDI path (scripts/midi_scale.py's plain_cache_floor leg at its
      published widths, 60 artists): synthetic .mid files (60-100 notes a
      song), packed by ``cli prepare --midi_root`` into the event corpus
@@ -166,7 +188,8 @@ Phases, each of which exits non-zero on failure:
 
 Weights are random from a seed; the corpora (the bench corpus, the
 V=5000 scale corpus of scripts/scale_test.py and the MIDI corpora) are
-synthetic, built offline in temporary directories.  fp32 matmuls run in full fp32
+synthetic, built offline in temporary directories, through the native
+data tier.  fp32 matmuls run in full fp32
 (TF32 off for both matmul and cuDNN).
 """
 
@@ -1980,6 +2003,11 @@ MIXED_TOL = 2e-2        # first decode step's mixed log-probs vs the plain
 LSE_TOL = 1e-4          # each row's logsumexp of the mixture, about 0
 
 
+# what a CLI leg's record holds beside its JSON: the config, the trained
+# parameters and the parameters each checkpoint was handed, by step
+LEG_OBJECTS = ("cfg", "params", "saved")
+
+
 def cli_args(model_yaml, corpus_dir, ckpt_dir, sets,
              data_yaml=DATA_YAML) -> list:
     return ["train", "--data", data_yaml, "--model", model_yaml,
@@ -2085,11 +2113,11 @@ def cli_leg(label, model_yaml, corpus, corpus_dir, ckpt_dir, sets, steps,
     final = losses[-1]["loss"]
     if not (np.isfinite(final) and final < first):
         raise RuntimeError(f"{label}: loss did not fall: {first} -> {final}")
-    rec.update(cfg=cfg, params=state.params, loss_first=first,
+    rec.update(cfg=cfg, params=state.params, saved=saved, loss_first=first,
                loss_last=final, val_nll=[(r["step"], r["val_nll"])
                                          for r in vals],
                episodes_per_sec=[r["episodes_per_sec"] for r in losses])
-    log(f"{label}: {json.dumps({k: v for k, v in rec.items() if k not in ('cfg', 'params', 'episodes_per_sec')})}")
+    log(f"{label}: {json.dumps({k: v for k, v in rec.items() if k not in (*LEG_OBJECTS, 'episodes_per_sec')})}")
     return rec
 
 
@@ -2164,6 +2192,289 @@ def cache_decode_check(label, cfg, params, corpus, dev) -> dict:
     log(f"  {label} cache head: {rec}")
     if not (first_err <= MIXED_TOL and lse_err <= LSE_TOL and counts_ok):
         raise RuntimeError(f"{label}: the cache head's decode is off: {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# slice 13: the host episode pipeline, the native tier, data parallelism
+# over torch.distributed and row-sharded serving
+# ---------------------------------------------------------------------------
+
+HOST_STEPS = 30         # train steps a pipeline in the host-pipeline phase
+HOST_WARMUP = 3         # untimed steps before them
+HOST_WINDOW = 5         # steps in the profiled window
+HOST_CLI_STEPS, HOST_CLI_RESUME = 150, 200
+NCCL_STEPS = 50         # the NCCL world of one: steps, = the checkpoint step
+HOST_EVAL_EVERY = 50    # eval and checkpoint interval of the host CLI legs
+PINNED_COPY = "Memcpy HtoD (Pinned -> Device)"
+
+
+def profiled_window(fn, steps: int) -> dict:
+    """Host ms of `steps` calls of fn (ending in a synchronize) under
+    torch.profiler, the device busy ms in the window (device-side events
+    of key_averages) and its chrome trace events."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if getattr(e, "device_type", None) == DeviceType.CUDA) / 1e3
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    return {"wall_ms": wall_ms, "busy_ms": busy if busy > 0 else None,
+            "events": events}
+
+
+def copy_streams(events) -> dict:
+    """The streams of the pinned host-to-device copies and of the port's
+    kernels (LSTM, head+CE) in a chrome trace."""
+    def streams(pick):
+        return sorted({e.get("args", {}).get("stream") for e in events
+                       if pick(e)} - {None})
+    return {"pinned_copies": sum(1 for e in events
+                                 if e.get("name") == PINNED_COPY),
+            "copy_streams": streams(lambda e: e.get("name") == PINNED_COPY),
+            "kernel_streams": streams(
+                lambda e: e.get("cat") == "kernel"
+                and ("lstm" in e.get("name", "")
+                     or "head_ce" in e.get("name", "")))}
+
+
+def host_pipeline_phase(cfg, corpus, dev, per_step, persistent) -> dict:
+    """Training C on the host pipeline (make_fed_train_step, one episode
+    batch a call) beside the same config on the device sampler:
+    HOST_WARMUP untimed steps, then HOST_STEPS timed steps each from the
+    same init, the loss falling, the kernels' counts
+    per_step exactly (persistent routes only); a profiled window of
+    HOST_WINDOW steps each for the device busy time and idle share; on the
+    host pipeline the episode copies must be pinned host-to-device copies
+    on a stream that none of the port's kernels runs on."""
+    from fewshot_torch import training
+    from fewshot_torch.data import episodes as eps
+    from fewshot_torch.data.host_pipeline import HostEpisodePipeline
+
+    data = eps.put_corpus(corpus, dev)
+    split = torch.as_tensor(np.asarray(corpus.splits["train"]),
+                            dtype=torch.int64, device=dev)
+    rec = {"phase": "host_pipeline_C", "batch": cfg.batch_size,
+           "steps": HOST_STEPS, "window_steps": HOST_WINDOW}
+    for name in ("device", "host"):
+        state = training.init_train_state(cfg, len(corpus.vocab), device=dev)
+        pipe = None
+        if name == "host":
+            pipe = HostEpisodePipeline(corpus, "train", cfg.batch_size,
+                                       cfg.support_size, cfg.query_size,
+                                       seed=cfg.seed, device=dev)
+            fed = training.make_fed_train_step(cfg)
+
+            def step(s):
+                return fed(s, next(pipe))
+        else:
+            step = training.make_train_step(cfg, data, split)
+        try:
+            for _ in range(HOST_WARMUP):
+                state, _ = step(state)
+            torch.cuda.synchronize()
+            kernel_counters = reset_counts()
+            losses = []
+            t0 = time.perf_counter()
+            for _ in range(HOST_STEPS):
+                state, m = step(state)
+                losses.append(m["loss"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {n: fn.launches for n, fn in kernel_counters.items()}
+            routes = route_counts(kernel_counters, persistent,
+                                  f"host_pipeline_C/{name}")
+            losses = [float(x) for x in losses]
+
+            def one():
+                nonlocal state
+                state, _ = step(state)
+            win = profiled_window(one, HOST_WINDOW)
+        finally:
+            if pipe is not None:
+                pipe.close()
+        if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+            raise RuntimeError(f"host_pipeline_C/{name}: loss not finite "
+                               f"and falling: {losses}")
+        for n, want in per_step.items():
+            if launches[n] != want * HOST_STEPS:
+                raise RuntimeError(
+                    f"host_pipeline_C/{name}: {n} launched {launches[n]} "
+                    f"times in {HOST_STEPS} steps, not {want} a step")
+        step_ms = win["wall_ms"] / HOST_WINDOW
+        busy = (None if win["busy_ms"] is None
+                else win["busy_ms"] / HOST_WINDOW)
+        rec[name] = {
+            "wall_s": wall, "episodes_per_s": HOST_STEPS * cfg.batch_size
+            / wall, "step_ms_loop": wall * 1e3 / HOST_STEPS,
+            "step_ms_window": step_ms, "step_device_busy_ms": busy,
+            "step_device_idle_share": (None if busy is None
+                                       else 1.0 - busy / step_ms),
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "launches": launches, "route_launches": routes,
+            **copy_streams(win["events"])}
+    host = rec["host"]
+    # the producer runs ahead of the steps, so the window holds the copies
+    # issued while it was open: at least one, none on a kernel's stream
+    if not host["pinned_copies"] or not host["kernel_streams"] \
+            or set(host["copy_streams"]) & set(host["kernel_streams"]):
+        raise RuntimeError(f"host_pipeline_C: the episode copies are not "
+                           f"pinned copies on a side stream: "
+                           f"{ {k: host[k] for k in ('pinned_copies', 'copy_streams', 'kernel_streams')} }")
+    log(f"host_pipeline_C: {json.dumps(rec)}")
+    return rec
+
+
+def nccl_world_phase(corpus, corpus_dir, ckpt_dir, sets, want) -> dict:
+    """The host-pipeline CLI leg for NCCL_STEPS steps under the FEWSHOT_*
+    variables of a world of one (127.0.0.1, a free port): torch.distributed
+    initialised with nccl, one all-reduce a train step and one an eval
+    (the val pipeline's (ce_sum, count) pair), and the parameters
+    of the checkpoint at NCCL_STEPS the same bits as `want` (the same steps
+    without the variables)."""
+    import os
+    import socket
+    import torch.distributed as dist
+    from fewshot_torch import bridge, cli
+    from fewshot_torch.parallel import mesh
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {"FEWSHOT_COORDINATOR": f"127.0.0.1:{port}",
+           "FEWSHOT_NUM_PROCESSES": "1", "FEWSHOT_PROCESS_ID": "0"}
+    os.environ.update(env)
+    calls = mesh.all_reduce_sum.calls
+    kernel_counters = reset_counts()
+    t0 = time.perf_counter()
+    try:
+        cli.main(cli_args(LSTM_YAML, corpus_dir, ckpt_dir,
+                          [*sets, f"max_steps={NCCL_STEPS}"]))
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+        world = dist.get_world_size()
+    finally:
+        for k in env:
+            os.environ.pop(k)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    reduces = mesh.all_reduce_sum.calls - calls
+    launches = {n: fn.launches for n, fn in kernel_counters.items()}
+    got = bridge.load_params(Path(ckpt_dir) / str(NCCL_STEPS) /
+                             "params.npz", "cuda")
+    same = all(torch.equal(p, want[n])
+               for n, p in got.named_parameters())
+    rec = {"phase": "nccl_world_of_one", "steps": NCCL_STEPS,
+           "evals": NCCL_STEPS // HOST_EVAL_EVERY,
+           "backend": backend, "world": world, "all_reduce_calls": reduces,
+           "params_same_bits_as_without": same, "wall_s": wall,
+           "launches": launches}
+    log(f"nccl_world_of_one: {json.dumps(rec)}")
+    evals = NCCL_STEPS // HOST_EVAL_EVERY
+    if backend != "nccl" or world != 1 or not same or \
+            reduces != NCCL_STEPS + evals:
+        raise RuntimeError(f"nccl_world_of_one failed its gates: {rec}")
+    return rec
+
+
+def sharded_serving_phase(label, cfg, corpus, params, dev, counter,
+                          gate_whole_batch=False) -> dict:
+    """Generator(devices=[cuda:0, cuda:0]) at batch 2b (chunks of b rows)
+    against Generator(device=cuda) at batch b on the same rows (one
+    artist, seeds s..s+2b-1 in one request there and two here), two seeds:
+    every continuation the same tokens, and the sharded calls must launch
+    `counter`.  The single-device Generator at batch 2b on the same rows is
+    recorded beside it (the share of equal continuations): cuBLAS picks
+    its GEMMs by row count, so a chunk of b rows and a batch of 2b can
+    round differently in bf16; gate_whole_batch requires it equal too."""
+    from fewshot_torch.serve import Generator
+    b = cfg.batch_size
+    one = Generator(cfg, corpus, params, batch_size=b, device=dev)
+    whole = Generator(cfg, corpus, params, batch_size=2 * b, device=dev)
+    two = Generator(cfg, corpus, params, batch_size=2 * b,
+                    devices=[dev, dev])
+    artist = corpus.artist_names[int(corpus.splits["train"][0])]
+
+    def rows(reply):
+        return [(r["artist"], r["text"]) for r in reply]
+    try:
+        launches = dict.fromkeys(counters(), 0)
+        same, whole_same, n = True, 0, 0
+        for seed in (3, 11):
+            a = rows(one.generate(num=b, artist=artist, episode_seed=seed)
+                     + one.generate(num=b, artist=artist,
+                                    episode_seed=seed + b))
+            w = rows(whole.generate(num=2 * b, artist=artist,
+                                    episode_seed=seed))
+            kernel_counters = reset_counts()
+            t0 = time.perf_counter()
+            got = rows(two.generate(num=2 * b, artist=artist,
+                                    episode_seed=seed))
+            wall = time.perf_counter() - t0
+            for k, fn in kernel_counters.items():
+                launches[k] += fn.launches
+            same &= got == a
+            whole_same += sum(x == y for x, y in zip(got, w))
+            n += len(got)
+    finally:
+        for g in (one, whole, two):
+            g.close()
+    rec = {"phase": label, "devices": [str(dev)] * 2, "rows": n,
+           "batch": two.batch, "chunk_rows": b, "same_tokens": same,
+           "whole_batch_equal_share": whole_same / n, "counter": counter,
+           "launches": launches, "last_sharded_wall_s": wall}
+    log(f"{label}: {json.dumps(rec)}")
+    if not same or launches[counter] == 0 or (
+            gate_whole_batch and whole_same != n):
+        raise RuntimeError(f"{label}: sharded serving failed: {rec}")
+    return rec
+
+
+def native_phase(tmp: Path, build_s: float) -> dict:
+    """The native library (built by g++ here in build_s seconds, before
+    the corpora), the corpus pass alone (tokenize, count, vocab, encode)
+    with native=True and native=False, and a synthetic lyrics corpus (800
+    artists x 16 songs, V=5000) packed both ways: the same corpus.npz,
+    vocab.json and meta.json bytes."""
+    from fewshot_torch.data import lyrics
+    from fewshot_torch.data.corpus import build_lyrics_corpus
+    from fewshot_torch.data.synthetic import generate_lyrics_csv
+    rec = {"phase": "native_tier", "build_s": build_s}
+    csv = tmp / "native.csv"
+    generate_lyrics_csv(csv, num_artists=800, songs_per_artist=16,
+                        extra_vocab=6000, seed=1)
+    rows = lyrics.read_lyrics_csv(csv)
+    rec["rows"] = len(rows)
+    passes = {}
+    for on in (True, False):
+        t0 = time.perf_counter()
+        passes[on] = lyrics.tokenize_corpus(rows, 5000, native=on)
+        rec["tokenize_s_native" if on else "tokenize_s_python"] = \
+            time.perf_counter() - t0
+        t0 = time.perf_counter()
+        build_lyrics_corpus(csv, tmp / f"native_{on}", vocab_size=5000,
+                            max_len=0, seed=1, native=on)
+        rec["prepare_s_native" if on else "prepare_s_python"] = \
+            time.perf_counter() - t0
+    rec["identical"] = {
+        "tokenize_corpus": (passes[True][0].tokens == passes[False][0].tokens
+                            and passes[True][1] == passes[False][1]),
+        **{name: (tmp / "native_True" / name).read_bytes()
+           == (tmp / "native_False" / name).read_bytes()
+           for name in ("corpus.npz", "vocab.json", "meta.json")}}
+    log(f"native_tier: {json.dumps(rec)}")
+    if not all(rec["identical"].values()):
+        raise RuntimeError(f"native_tier: the packed files differ: {rec}")
     return rec
 
 
@@ -2535,6 +2846,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
     from fewshot_torch.config import Config
+    from fewshot_torch.models import lm as lm_mod
     from fewshot_torch.quality import card_line
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2552,6 +2864,11 @@ def main() -> int:
                           lstm_launch_split(dev)}), flush=True)
         return 0
     hmma = build_all()
+    from fewshot_torch.data import native
+    t0 = time.perf_counter()
+    native.load()                       # g++, before the corpora use it
+    native_build_s = time.perf_counter() - t0
+    log(f"native data tier built by g++ in {native_build_s:.2f} s")
 
     log("kernels vs plain twins (full width):")
     records = kernel_phase(dev)
@@ -2635,10 +2952,10 @@ def main() -> int:
         per_eval_batch={"prefix_attn_fwd": 2 * LAYERS - 1, "head_ce_fwd": 1},
         referee=True)
     # configs/model/transformer.yaml + configs/task/episodic.yaml
-    serve_c = serving_phase(
-        "serving_C", dataclasses.replace(shipped, model="transformer",
-                                         num_layers=4, num_heads=2),
-        corpus, dev, "prefix_attn_fwd")
+    serve_c_cfg = dataclasses.replace(shipped, model="transformer",
+                                      num_layers=4, num_heads=2)
+    serve_c = serving_phase("serving_C", serve_c_cfg, corpus, dev,
+                            "prefix_attn_fwd")
     flash = flash_phase(dev)
 
     # the training options of slice 12: dropout on A and C (the kernel
@@ -2701,18 +3018,50 @@ def main() -> int:
     serve_tfm["cache_head"] = cache_decode_check(
         "serving_cli_transformer", tfm_leg["cfg"], tfm_leg["params"], scale,
         dev)
+
+    # slice 13: training C on the host pipeline beside the device sampler;
+    # pipeline: host through the CLI on the flagship recipe (checkpoints
+    # every 50 steps, resumed in a new process); the same leg as an NCCL
+    # world of one, which must end on the same bits at step 50; rows
+    # sharded over [cuda:0, cuda:0] in serving; the native data tier
+    host_c = host_pipeline_phase(
+        cache, scale, dev, {**layer_step, "head_ce_fwd": 1, "head_ce_bwd": 1},
+        layer_pair)
+    host_sets = sets + ["pipeline=host", f"eval_interval={HOST_EVAL_EVERY}",
+                        f"checkpoint_interval={HOST_EVAL_EVERY}"]
+    host_leg = cli_leg(
+        "cli_host_pipeline_leg", LSTM_YAML, scale, corpus_dir,
+        tmp / "ck_host", host_sets, HOST_CLI_STEPS,
+        exact={"lstm_stack_bwd": 2, "head_ce_bwd": 1}, dev=dev,
+        persistent=stack_pair, resume_steps=HOST_CLI_RESUME)
+    nccl = nccl_world_phase(scale, corpus_dir, tmp / "ck_nccl", host_sets,
+                            host_leg["saved"][NCCL_STEPS])
+    sharded = {
+        "lstm": sharded_serving_phase(
+            "sharded_serving_lstm", host_leg["cfg"], scale,
+            host_leg["params"], dev, "lstm_stack_fwd",
+            gate_whole_batch=True),
+        "transformer": sharded_serving_phase(
+            "sharded_serving_transformer", serve_c_cfg, corpus,
+            lm_mod.init_lm(serve_c_cfg, len(corpus.vocab),
+                           torch.Generator().manual_seed(serve_c_cfg.seed),
+                           dev), dev, "prefix_attn_fwd")}
+    native_rec = native_phase(tmp, native_build_s)
     scale_tmp.cleanup()
     legs = {}
     for name, leg, srv in (("lstm", lstm_leg, serve_lstm),
                            ("transformer", tfm_leg, serve_tfm)):
         legs[name] = {
-            **{k: v for k, v in leg.items() if k not in ("cfg", "params")},
+            **{k: v for k, v in leg.items() if k not in LEG_OBJECTS},
             "serving": {k: srv[k] for k in (
                 "requests", "p50_latency_s", "max_latency_s",
                 "tokens_per_s", "generated_tokens", "batch_generate_ms",
                 "batch_device_busy_ms", "batch_device_idle_share",
                 "launches", "cache_head")}}
         log(f"leg {name}: {json.dumps(legs[name])}")
+    legs["host_pipeline"] = {k: v for k, v in host_leg.items()
+                             if k not in LEG_OBJECTS}
+    log(f"slice 13: {json.dumps({'native_tier': native_rec, 'nccl_world_of_one': {k: v for k, v in nccl.items() if k != 'launches'}, 'sharded_serving': {k: v['same_tokens'] for k, v in sharded.items()}})}")
 
     # the MIDI path (scripts/midi_scale.py's plain_cache_floor leg, cut to
     # 60 artists and 300 steps): the corpora through cli prepare, the
@@ -2738,7 +3087,7 @@ def main() -> int:
     for name, leg in midi_legs.items():
         srv = leg.pop("serving", None)
         legs[name] = {k: v for k, v in leg.items()
-                      if k not in ("cfg", "params")}
+                      if k not in LEG_OBJECTS}
         if srv is not None:
             legs[name]["serving"] = {k: srv[k] for k in (
                 "requests", "p50_latency_s", "max_latency_s", "tokens_per_s",
@@ -2869,6 +3218,13 @@ def main() -> int:
             "training_D_no_remat": remat_d["no_remat"]["launches"][name],
             "training_D_remat": remat_d["remat"]["launches"][name],
             "finetune_phase": finetune["launches"][name]}
+        rec["launches_slice13"] = {     # per phase, in total
+            "host_pipeline_C": host_c["host"]["launches"][name],
+            "device_pipeline_C": host_c["device"]["launches"][name],
+            "nccl_world_of_one": nccl["launches"][name],
+            "sharded_serving_lstm": sharded["lstm"]["launches"][name],
+            "sharded_serving_transformer":
+                sharded["transformer"]["launches"][name]}
         midi_keys = ([f"midi_layer{key[5:]}_t{t}" for t in (
             midi.max_len, midi.max_len - 1)] if key.startswith("layer")
             else [f"midi_stack_t{midi.max_len}"] if key == "stack"

@@ -32,10 +32,26 @@ steps per chunk (``training.make_multi_step``), logs loss, episodes/s and
 the grad norm every ``log_interval`` steps, the validation NLL every
 ``eval_interval`` steps, and checkpoints every ``checkpoint_interval``
 steps and at the end (``utils/ckpt.py``; a run pointed at a directory with
-a checkpoint resumes from its latest step).  ``data_parallel`` on one card
-is a mesh of one device; ``pipeline: host`` is not ported yet.  Every
+a checkpoint resumes from its latest step).  ``pipeline: host`` (task
+episodic only) streams the episodes from host RAM instead
+(``data/host_pipeline.py``), one step a call, and evaluates on a val
+pipeline seeded ``seed + 1``; a resumed host run seeds its train pipeline
+with ``seed + start_step`` so that it draws fresh episodes, as the JAX
+package does, and so differs from an unbroken run by design.  Every
 command that runs the model is on ``cuda`` unless ``--device cpu`` is
 given, and raises without a card.
+
+Several processes, one per card (``parallel/distributed.py``): run
+process i of N with ``FEWSHOT_COORDINATOR=<host>:<port>
+FEWSHOT_NUM_PROCESSES=N FEWSHOT_PROCESS_ID=i`` set, e.g. on one host
+
+    for i in 0 1 2 3; do FEWSHOT_COORDINATOR=127.0.0.1:29500 \
+        FEWSHOT_NUM_PROCESSES=4 FEWSHOT_PROCESS_ID=$i \
+        python -m fewshot_torch.cli train ... & done; wait
+
+Under ``data_parallel`` each process then trains and evaluates on
+batch_size / N of the episodes (the sums all-reduced over NCCL, or gloo
+with ``--device cpu``); only process 0 logs, prints and writes files.
 """
 
 from __future__ import annotations
@@ -61,10 +77,13 @@ from fewshot_torch.data.corpus import (PackedCorpus, build_lyrics_corpus,
 from fewshot_torch.data.lyrics import detokenize
 from fewshot_torch.data.synthetic import (generate_lyrics_csv,
                                           generate_midi_corpus)
-from fewshot_torch.device import resolve_device
+from fewshot_torch.data.host_pipeline import HostEpisodePipeline
 from fewshot_torch.models.unigram import evaluate_unigram
+from fewshot_torch.parallel.distributed import (is_primary, maybe_initialize,
+                                                process_device)
+from fewshot_torch.parallel.mesh import make_mesh, rank_seed
 from fewshot_torch.utils.ckpt import hparams_of, recover_or_init, \
-    save_checkpoint
+    restore_params, save_checkpoint
 from fewshot_torch.utils.metrics import MetricsLogger, Throughput
 
 
@@ -77,6 +96,7 @@ def _setup(argv, extra_flags=None):
     if extra_flags:
         extra_flags(parser)
     args = parser.parse_args(argv)
+    maybe_initialize(args.device)
     cfg = load_config(args.data, args.model, args.task,
                       parse_overrides(args.set))
     corpus_dir = Path(cfg.corpus_dir)
@@ -84,7 +104,7 @@ def _setup(argv, extra_flags=None):
         sys.exit(f"no packed corpus at {corpus_dir} — run "
                  f"python -m fewshot_torch.cli prepare first (see README)")
     corpus = PackedCorpus.load(corpus_dir)
-    if corpus.max_len != cfg.max_len:
+    if corpus.max_len != cfg.max_len and is_primary():
         print(f"warning: corpus max_len={corpus.max_len} != config "
               f"max_len={cfg.max_len}; the packed corpus wins "
               f"(re-run prepare to change it)", flush=True)
@@ -123,8 +143,8 @@ def _warn_starvation(cfg, corpus) -> None:
 def _checked(train_step):
     """train_step that raises on the first non-finite loss or grad norm
     (each step waits for the device)."""
-    def step(state):
-        state, metrics = train_step(state)
+    def step(state, *ep):
+        state, metrics = train_step(state, *ep)
         for k in ("loss", "grad_norm"):
             if not math.isfinite(float(metrics[k])):
                 raise FloatingPointError(
@@ -147,38 +167,59 @@ def train_main(argv=None) -> None:
                             "<checkpt_dir>/tb where tensorboard is "
                             "installed")
     args, cfg, corpus = _setup(argv, flags)
-    device = resolve_device(args.device)
-    _warn_starvation(cfg, corpus)
-    if cfg.pipeline == "host":
-        raise NotImplementedError(
-            "pipeline: host (the host episode pipeline and the native "
-            "tokenizer) is not ported yet (ROADMAP.md, queue 1); use "
-            "pipeline: device")
+    device = process_device(args.device)
+    if is_primary():
+        _warn_starvation(cfg, corpus)
     vocab_hash = corpus.vocab.content_hash() if corpus.vocab else ""
-    # the whole corpus lives on the device; data_parallel on one card is a
-    # mesh of one device
-    data = eps.put_corpus(corpus, device)
-    train_split = _split_arg(cfg, corpus, "train", device)
-    val_split = _split_arg(cfg, corpus, "val", device)
+    if cfg.pipeline == "host" and cfg.task != "episodic":
+        sys.exit("pipeline: host supports only task: episodic — use "
+                 "pipeline: device for plain-LM training (task: lm)")
+    host_mode = cfg.pipeline == "host"
+    mesh = make_mesh() if cfg.data_parallel else None
+    if not host_mode:
+        # device pipeline: the whole corpus lives on each process's card
+        data = eps.put_corpus(corpus, device)
+        train_split = _split_arg(cfg, corpus, "train", device)
+        val_split = _split_arg(cfg, corpus, "val", device)
 
-    state = training.init_train_state(cfg, len(corpus.vocab), device=device)
+    state = training.init_train_state(cfg, len(corpus.vocab), device=device,
+                                      mesh=mesh)
     state, restored = recover_or_init(args.checkpt_dir, state, vocab_hash,
-                                      hparams=hparams_of(cfg))
+                                      hparams=hparams_of(cfg), mesh=mesh)
     start_step = int(state.step)
-    if restored:
+    if restored and is_primary():
         print(f"restored checkpoint at step {start_step}", flush=True)
 
-    train_step = training.make_train_step(cfg, data, train_split)
+    pipe = val_pipe = None
+    if host_mode:
+        # the restored step folds into the seed, so that a resumed run
+        # draws fresh episodes instead of the ones already trained on
+        pipe = HostEpisodePipeline(
+            corpus, "train", cfg.batch_size, cfg.support_size,
+            cfg.query_size, seed=cfg.seed + start_step, device=device,
+            rank=mesh.rank if mesh else 0, world=mesh.world if mesh else 1)
+        train_step = training.make_fed_train_step(cfg, mesh=mesh)
+        if cfg.eval_interval:
+            val_pipe = HostEpisodePipeline(
+                corpus, "val", cfg.batch_size, cfg.support_size,
+                cfg.query_size, seed=cfg.seed + 1, prefetch=1, device=device,
+                rank=mesh.rank if mesh else 0,
+                world=mesh.world if mesh else 1)
+    else:
+        train_step = training.make_train_step(cfg, data, train_split,
+                                              mesh=mesh)
     if args.debug_nans:
         train_step = _checked(train_step)
-    logger = MetricsLogger(args.checkpt_dir, stdout=True,
+    logger = MetricsLogger(args.checkpt_dir if is_primary() else None,
+                           stdout=is_primary(),
                            tensorboard=args.tensorboard)
     tput = Throughput()
     tput.start()
     # steps_per_call steps a chunk; config validation puts every log, eval
-    # and checkpoint boundary on a chunk edge.  Profiling brackets step
-    # indices, so it runs one step a chunk.
-    spc = 1 if args.profile_dir else cfg.steps_per_call
+    # and checkpoint boundary on a chunk edge.  The host pipeline feeds one
+    # episode a call, and profiling brackets step indices, so both run one
+    # step a chunk.
+    spc = 1 if (host_mode or args.profile_dir) else cfg.steps_per_call
     if start_step % spc:
         # a checkpoint written under another steps_per_call would make the
         # chunked range miss every boundary and stop short of max_steps
@@ -195,15 +236,18 @@ def train_main(argv=None) -> None:
                 *([torch.profiler.ProfilerActivity.CUDA]
                   if device.type == "cuda" else [])])
             prof.start()
-        state, metrics = chunked(state)
+        state, metrics = (train_step(state, next(pipe)) if pipe is not None
+                          else chunked(state))
         if prof is not None and step == 20:
             float(metrics["loss"])                 # wait for the device
             prof.stop()
             out = Path(args.profile_dir)
             out.mkdir(parents=True, exist_ok=True)
-            prof.export_chrome_trace(str(out / "trace.json"))
+            if is_primary():
+                prof.export_chrome_trace(str(out / "trace.json"))
+                print(f"profile trace written to {args.profile_dir}",
+                      flush=True)
             prof = None
-            print(f"profile trace written to {args.profile_dir}", flush=True)
         tput.add(cfg.batch_size * spc)
         if step % cfg.log_interval == 0 or step == cfg.max_steps:
             loss = float(metrics["loss"])          # waits for the device
@@ -214,29 +258,42 @@ def train_main(argv=None) -> None:
                        grad_norm=float(metrics["grad_norm"]))
             tput.start()
         if cfg.eval_interval and step % cfg.eval_interval == 0:
-            gen = torch.Generator(device=device).manual_seed(cfg.seed + step)
-            nll = training.evaluate(cfg, state.params, data, val_split, gen)
+            if val_pipe is not None:
+                nll = training.evaluate_fed(cfg, state.params, val_pipe,
+                                            mesh=mesh)
+            else:
+                gen = torch.Generator(device=device).manual_seed(
+                    rank_seed(cfg.seed + step, mesh))
+                nll = training.evaluate(cfg, state.params, data, val_split,
+                                        gen, mesh=mesh)
             logger.log(step, val_nll=nll)
         if args.checkpt_dir and cfg.checkpoint_interval and \
                 step % cfg.checkpoint_interval == 0:
             save_checkpoint(args.checkpt_dir, state, vocab_hash,
-                            hparams=hparams_of(cfg))
+                            hparams=hparams_of(cfg), mesh=mesh)
+    for p in (pipe, val_pipe):
+        if p is not None:
+            p.close()
     if args.checkpt_dir:
         save_checkpoint(args.checkpt_dir, state, vocab_hash,
-                        hparams=hparams_of(cfg))
+                        hparams=hparams_of(cfg), mesh=mesh)
     logger.close()
 
 
 def _restore(args, cfg, corpus, device):
-    """The train state of the config, its latest checkpoint restored when
-    --checkpt_dir is given (none there exits)."""
-    state = training.init_train_state(cfg, len(corpus.vocab), device=device)
-    vocab_hash = corpus.vocab.content_hash() if corpus.vocab else ""
-    state, restored = recover_or_init(args.checkpt_dir, state, vocab_hash,
-                                      hparams=hparams_of(cfg))
-    if args.checkpt_dir and not restored:
+    """The parameters to evaluate or sample: the latest checkpoint's when
+    --checkpt_dir is given (none there exits), else the config's
+    initialization.  Only the parameters are read, so a checkpoint
+    written by any number of processes serves."""
+    if not args.checkpt_dir:
+        return training.init_train_state(cfg, len(corpus.vocab),
+                                         device=device).params
+    params = restore_params(
+        args.checkpt_dir, device,
+        corpus.vocab.content_hash() if corpus.vocab else "", hparams_of(cfg))
+    if params is None:
         sys.exit(f"no checkpoint found in {args.checkpt_dir}")
-    return state
+    return params
 
 
 def _print_base_token_nll(corpus, split: str, nll: float, prefix: str,
@@ -269,21 +326,29 @@ def evaluate_main(argv=None) -> None:
                        help="with --eval_set: also run the random-split "
                             "evaluation afterwards")
     args, cfg, corpus = _setup(argv, flags)
-    device = resolve_device(args.device)
+    device = process_device(args.device)
+    # under several processes each evaluates its share of every batch
+    # from its own generator, and the (ce_sum, count) pairs are summed
+    mesh = make_mesh() if cfg.data_parallel else None
     data = eps.put_corpus(corpus, device)
     split = _split_arg(cfg, corpus, args.split, device)
+
+    def gen():
+        return torch.Generator(device=device).manual_seed(
+            rank_seed(cfg.seed, mesh))
+
+    def say(line: str) -> None:
+        if is_primary():
+            print(line, flush=True)
     if args.baseline == "unigram":
         if cfg.task != "episodic":
             sys.exit("--baseline unigram requires task=episodic (it scores "
                      "support-conditioned episodes)")
-        nll = evaluate_unigram(
-            cfg, corpus, data, split,
-            torch.Generator(device=device).manual_seed(cfg.seed),
-            args.episodes)
-        print(f"{args.split}_nll_per_token={nll:.6f} (unigram baseline)",
-              flush=True)
+        nll = evaluate_unigram(cfg, corpus, data, split, gen(),
+                               args.episodes, mesh=mesh)
+        say(f"{args.split}_nll_per_token={nll:.6f} (unigram baseline)")
         return
-    params = _restore(args, cfg, corpus, device).params
+    params = _restore(args, cfg, corpus, device)
     if args.eval_set:
         if cfg.task != "episodic":
             sys.exit("--eval_set requires task=episodic")
@@ -291,34 +356,32 @@ def evaluate_main(argv=None) -> None:
         if (k, q) != (cfg.support_size, cfg.query_size):
             sys.exit(f"eval set was built for K={k} Q={q}, config has "
                      f"K={cfg.support_size} Q={cfg.query_size}")
+        # the fixed set is scored whole on every process
         nll = training.evaluate_episode_set(cfg, params, data, ids, arts, k,
                                             q)
-        print(f"eval_set_nll_per_token={nll:.6f} "
-              f"({len(ids)} fixed episodes from {args.eval_set})",
-              flush=True)
+        say(f"eval_set_nll_per_token={nll:.6f} "
+            f"({len(ids)} fixed episodes from {args.eval_set})")
         # over the set's own query songs: the set may come from another
         # split than --split
-        _print_base_token_nll(corpus, args.split, nll, prefix="eval_set",
-                              song_ids=np.asarray(ids)[:, k:].ravel())
+        if is_primary():
+            _print_base_token_nll(corpus, args.split, nll, prefix="eval_set",
+                                  song_ids=np.asarray(ids)[:, k:].ravel())
         if not args.also_split_eval:
             return          # one invocation, one advertised result
-    nll = training.evaluate(
-        cfg, params, data, split,
-        torch.Generator(device=device).manual_seed(cfg.seed),
-        num_episodes=args.episodes)
-    print(f"{args.split}_nll_per_token={nll:.6f}", flush=True)
-    _print_base_token_nll(corpus, args.split, nll, prefix=args.split)
+    nll = training.evaluate(cfg, params, data, split, gen(),
+                            num_episodes=args.episodes, mesh=mesh)
+    say(f"{args.split}_nll_per_token={nll:.6f}")
+    if is_primary():
+        _print_base_token_nll(corpus, args.split, nll, prefix=args.split)
     if args.per_artist and cfg.task == "episodic":
         # each artist's episodes alone, from the same generator seed
         for a in np.asarray(corpus.splits[args.split]):
             one = torch.tensor([int(a)], dtype=torch.int64, device=device)
-            nll = training.evaluate(
-                cfg, params, data, one,
-                torch.Generator(device=device).manual_seed(cfg.seed),
-                num_episodes=args.episodes)
+            nll = training.evaluate(cfg, params, data, one, gen(),
+                                    num_episodes=args.episodes, mesh=mesh)
             name = (corpus.artist_names[int(a)] if corpus.artist_names
                     else str(int(a)))
-            print(f"  artist {name}: nll={nll:.4f}", flush=True)
+            say(f"  artist {name}: nll={nll:.4f}")
 
 
 def sample_main(argv=None) -> None:
@@ -330,9 +393,11 @@ def sample_main(argv=None) -> None:
         p.add_argument("--split", default="test",
                        choices=("train", "val", "test"))
     args, cfg, corpus = _setup(argv, flags)
-    device = resolve_device(args.device)
+    # several processes compute the same samples (the same seeds); only
+    # process 0 writes them
+    device = process_device(args.device)
     data = eps.put_corpus(corpus, device)
-    params = _restore(args, cfg, corpus, device).params
+    params = _restore(args, cfg, corpus, device)
     artists = torch.as_tensor(np.asarray(corpus.splits[args.split]),
                               dtype=torch.int64, device=device)
     ep = eps.sample_episode(
@@ -344,6 +409,8 @@ def sample_main(argv=None) -> None:
         params, ep.support, ep.support_len, gens, cfg,
         token_masks=sampling_mod.grammar_masks(cfg, corpus, device))
     toks = toks.cpu().numpy()
+    if not is_primary():
+        return
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     for i in range(args.num):

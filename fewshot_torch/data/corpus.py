@@ -4,9 +4,9 @@ Port of ``fewshot/data/corpus.py`` (pack, save, load, ``device_arrays``,
 ``make_splits``, ``build_lyrics_corpus``, ``build_midi_corpus`` and the
 pack-time BPE).  It reads and writes the same ``corpus.npz`` /
 ``meta.json`` / ``vocab.json`` / ``bpe.json`` files, so a corpus packed by
-either package serves both.  MIDI files are parsed by the port's Python SMF
-reader (``data/midi.py``); the JAX package prefers its native reader, which
-its own tests pin to the same notes.
+either package serves both.  Lyrics are tokenized and MIDI files parsed by
+the native library (``data/native.py``) unless a builder is given
+``native=False`` (the Python paths, the same bytes).
 
 Arrays (all int32):
     songs            [S, max_len]  BOS + tokens + EOS, PAD-padded/truncated
@@ -231,26 +231,33 @@ def _pack_and_save(items, vocab, out_dir, max_len: int, seed: int,
 
 def build_lyrics_corpus(csv_path: str | Path, out_dir: str | Path,
                         vocab_size: int, max_len: int, seed: int = 0,
-                        bpe_merges: int = 0) -> PackedCorpus:
+                        bpe_merges: int = 0, native: bool = True
+                        ) -> PackedCorpus:
     """CSV -> tokens -> vocab (-> BPE) -> packed corpus, saved under
     out_dir."""
     rows = lyrics_mod.read_lyrics_csv(csv_path)
-    vocab, items = lyrics_mod.tokenize_corpus(rows, vocab_size)
+    vocab, items = lyrics_mod.tokenize_corpus(rows, vocab_size, native)
     return _pack_and_save(items, vocab, out_dir, max_len, seed, bpe_merges)
 
 
 def build_midi_corpus(midi_root: str | Path, out_dir: str | Path,
                       max_len: int, seed: int = 0,
-                      bpe_merges: int = 0) -> PackedCorpus:
+                      bpe_merges: int = 0, native: bool = True
+                      ) -> PackedCorpus:
     """Per-artist directories of ``.mid`` files -> event tokens (-> BPE)
     -> packed corpus, saved under out_dir.  The event vocab is closed
     (``midi.full_event_vocab``), so there is no counting pass; a file with
     no notes is skipped."""
+    if native:
+        from fewshot_torch.data import native as native_mod
+        parse = native_mod.parse_midi
+    else:
+        parse = midi_mod.parse_midi
     vocab = Vocab(SPECIALS + midi_mod.full_event_vocab())
     items: list[tuple[str, str, list[int]]] = []
     for adir in sorted(p for p in Path(midi_root).iterdir() if p.is_dir()):
         for mid in sorted(adir.glob("*.mid")):
-            notes = midi_mod.parse_midi(mid)
+            notes = parse(mid)
             if notes:
                 items.append((adir.name, mid.stem,
                               vocab.encode(midi_mod.notes_to_events(notes))))

@@ -1,8 +1,11 @@
 """Offline lyrics tokenizer: (artist, song, lyrics) CSV -> word tokens.
 
-Port of ``fewshot/data/lyrics.py`` without its native-library branch: the
-pure-Python tokenizer, which the native one matches byte for byte, and
-``detokenize`` for readable samples.
+Port of ``fewshot/data/lyrics.py``: the pure-Python tokenizer, the corpus
+passes (``count_corpus``, ``encode_corpus``, ``tokenize_corpus``) and
+``detokenize`` for readable samples.  The corpus passes run through the
+native library (``data/native.py``, byte for byte the same) unless the
+caller passes ``native=False``; where the library cannot be built they
+raise, as ``data/native.py`` says, rather than fall back.
 """
 
 from __future__ import annotations
@@ -37,12 +40,38 @@ def read_lyrics_csv(path: str | Path) -> list[tuple[str, str, str]]:
     return rows
 
 
-def tokenize_corpus(rows: list[tuple[str, str, str]], vocab_size: int
+def count_corpus(rows: list[tuple[str, str, str]],
+                 native: bool = True) -> Counter:
+    """Token counts over rows (one pass; no encoded output)."""
+    if native:
+        from fewshot_torch.data import native as native_mod
+        return native_mod.count_corpus(rows)
+    counter: Counter = Counter()
+    for _, _, text in rows:
+        counter.update(tokenize_line(text))
+    return counter
+
+
+def encode_corpus(rows: list[tuple[str, str, str]], vocab: Vocab,
+                  native: bool = True) -> list:
+    """Encode rows against a fixed vocab: [(artist, song, ids)] (int32
+    arrays from the native pass, lists of ints from Python's)."""
+    if native:
+        from fewshot_torch.data import native as native_mod
+        return native_mod.encode_corpus(rows, vocab)
+    return [(a, s, vocab.encode(tokenize_line(t))) for a, s, t in rows]
+
+
+def tokenize_corpus(rows: list[tuple[str, str, str]], vocab_size: int,
+                    native: bool = True
                     ) -> tuple[Vocab, list[tuple[str, str, list[int]]]]:
     """Tokenize all songs, build the top-N vocab, encode to int ids.
 
     Returns (vocab, [(artist, song, ids)]); ids exclude BOS/EOS, which the
-    packer adds."""
+    packer adds.  native=False is the pure-Python path."""
+    if native:
+        from fewshot_torch.data import native as native_mod
+        return native_mod.tokenize_corpus(rows, vocab_size)
     tokenized = [(a, s, tokenize_line(t)) for a, s, t in rows]
     counter: Counter = Counter()
     for _, _, toks in tokenized:

@@ -1,6 +1,6 @@
 """Unigram baselines: the count models the neural ones must beat.
 
-Port of ``fewshot/models/unigram.py`` on one device:
+Port of ``fewshot/models/unigram.py``:
 
 * the global unigram: smoothed token frequencies over the train split's
   songs (``fit_global``);
@@ -10,7 +10,8 @@ Port of ``fewshot/models/unigram.py`` on one device:
   floor.
 
 NLL semantics are the neural path's (targets 1..len-1, PAD masked), so the
-numbers compare directly.
+numbers compare directly.  Under a data mesh the floor's batches are split
+over the ranks as ``training.make_eval_step`` splits the model's.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import torch
 from fewshot_torch.data import episodes as eps
 from fewshot_torch.data.vocab import PAD
 from fewshot_torch.models.lm import shift_targets, support_counts
+from fewshot_torch.parallel.mesh import Mesh, local_batch, sum_over
 from fewshot_torch.training import mean_nll
 
 
@@ -60,18 +62,25 @@ def lm_nll_stats(tokens: torch.Tensor, lengths: torch.Tensor,
     return -(log_probs[targets] * m).sum(), m.sum()
 
 
-def make_unigram_eval_step(cfg, data, split_artists, vocab_size: int):
+def make_unigram_eval_step(cfg, data, split_artists, vocab_size: int,
+                           mesh: Mesh | None = None):
     """(glp, gen) -> (ce_sum, count) over one episodic batch sampled on the
-    corpus device from the generator gen."""
+    corpus device from the generator gen.  Under a mesh each rank draws
+    batch_size / W episodes from its own gen and the pair is
+    all-reduced."""
+    rows = local_batch(cfg.batch_size, mesh)
+
     def step(glp, gen):
-        ep = eps.sample_episode(gen, data, split_artists, cfg.batch_size,
+        ep = eps.sample_episode(gen, data, split_artists, rows,
                                 k=cfg.support_size, q=cfg.query_size)
-        return episodic_nll_stats(ep, glp, vocab_size)
+        pair = episodic_nll_stats(ep, glp, vocab_size)
+        return sum_over(mesh, pair)
     return step
 
 
 def evaluate_unigram(cfg, corpus, data, split_artists, gen: torch.Generator,
-                     num_episodes: int | None = None) -> float:
+                     num_episodes: int | None = None,
+                     mesh: Mesh | None = None) -> float:
     """Average query NLL/token of the episodic unigram over
     num_episodes // batch_size batches (``training.mean_nll``), the global
     prior fitted on the train split."""
@@ -79,5 +88,6 @@ def evaluate_unigram(cfg, corpus, data, split_artists, gen: torch.Generator,
                            dtype=torch.int64, device=data.songs.device)
     v = len(corpus.vocab)
     glp = fit_global(data.songs, data.song_len, pool, v)
-    return mean_nll(make_unigram_eval_step(cfg, data, split_artists, v), glp,
-                    gen, cfg, num_episodes)
+    return mean_nll(make_unigram_eval_step(cfg, data, split_artists, v,
+                                           mesh), glp, gen, cfg,
+                    num_episodes)

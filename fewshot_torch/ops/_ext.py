@@ -8,7 +8,9 @@ launch with the tensors' device current (the helpers below).  The library
 goes into ``.torch_ext/`` at the repository root (ignored by git), named by
 a hash of its source, the ``csrc/`` headers it includes and the flags, so
 an edited source or header is rebuilt and an unchanged one is reused.  Nothing is built or loaded at import: the first
-kernel launch builds.
+kernel launch builds.  ``build`` also takes another compiler, flags and
+source directory: ``data/native.py`` builds the C++ data tier with g++
+through it.
 """
 
 from __future__ import annotations
@@ -86,11 +88,11 @@ def _nvcc() -> str:
 _INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
-def sources(name: str, csrc: Path = CSRC) -> list[Path]:
-    """csrc/<name>.cu and every header it includes by a quoted path,
+def sources(name: str, csrc: Path = CSRC, suffix: str = ".cu") -> list[Path]:
+    """csrc/<name><suffix> and every header it includes by a quoted path,
     directly or through another header, in the order first reached."""
     found: list[Path] = []
-    todo = [csrc / f"{name}.cu"]
+    todo = [csrc / f"{name}{suffix}"]
     while todo:
         f = todo.pop(0)
         if f in found:
@@ -100,21 +102,24 @@ def sources(name: str, csrc: Path = CSRC) -> list[Path]:
     return found
 
 
-def library_path(name: str, csrc: Path = CSRC) -> Path:
-    """Where the library of csrc/<name>.cu goes: named by a hash of its
-    sources' bytes and the nvcc flags."""
+def library_path(name: str, csrc: Path = CSRC, flags=NVCC_FLAGS,
+                 suffix: str = ".cu") -> Path:
+    """Where the library of csrc/<name><suffix> goes: named by a hash of
+    its sources' bytes and the compiler flags."""
     h = hashlib.sha256()
-    for f in sources(name, csrc):
+    for f in sources(name, csrc, suffix):
         h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-def build(name: str) -> Path:
-    """Compile csrc/<name>.cu unless a library of the same hash exists;
-    nvcc's output is kept beside the library (<library>.log)."""
-    src = CSRC / f"{name}.cu"
-    out = library_path(name)
+def build(name: str, csrc: Path = CSRC, compiler=None, flags=NVCC_FLAGS,
+          suffix: str = ".cu") -> Path:
+    """Compile csrc/<name><suffix> (nvcc unless `compiler` names another)
+    unless a library of the same hash exists; the compiler's output is
+    kept beside the library (<library>.log)."""
+    src = csrc / f"{name}{suffix}"
+    out = library_path(name, csrc, flags, suffix)
     log = out.with_name(out.name + ".log")
     if out.exists():
         if log.exists():
@@ -122,10 +127,12 @@ def build(name: str) -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    cc = compiler or _nvcc()
+    proc = subprocess.run([cc, *flags, "-o", str(tmp), str(src)],
                           capture_output=True, text=True)
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stderr}")
+        raise RuntimeError(f"{Path(cc).name} failed on {src.name}:\n"
+                           f"{proc.stderr}")
     build_log[name] = proc.stdout + proc.stderr
     log.write_text(build_log[name])
     os.replace(tmp, out)

@@ -1,4 +1,4 @@
-"""Serving tier: few-shot continuations over HTTP from one device.
+"""Serving tier: few-shot continuations over HTTP from one or more devices.
 
 Port of ``fewshot/serve.py`` (LSTM or transformer; lyrics or MIDI).  One
 process loads the corpus and parameters once, warms the sampler, and
@@ -27,17 +27,37 @@ tokens first.
 Run: ``python -m fewshot_torch.serve --data … --model … --task …
 [--checkpt_dir DIR] [--serve_batch N] [--device cuda|cpu] [--set K=V …]``;
 DIR is a training run's checkpoint directory (its latest step is served)
-or a directory holding a bare ``params.npz``.  Multi-GPU serving is a
-later slice of the port.
+or a directory holding a bare ``params.npz``.
+
+Several cards (``Generator(devices=[...])``; ``serve_main`` takes every
+visible card under ``data_parallel``): the batch is rounded up to a
+multiple of the device count and its rows are split into contiguous
+chunks, one a device; each chunk's episode draw, support pass and decode
+run on its device against that device's replica of the parameters (and of
+the grammar masks), and the outputs are concatenated in row order.  The
+chunks of distinct devices decode at the same time, one thread a device
+(the decode waits on its device every few steps, so one thread would run
+the devices one after another); chunks that share a device run in turn,
+since a persistent kernel needs its card to itself.  The
+per-row generators make a row's tokens independent of the layout, so they
+equal the single-device output token for token where a device gets as
+many rows as the single device does; in bf16 on the card a GEMM over
+another row count can round differently (cuBLAS picks its kernel by
+shape) and move a sampled token near a tie.  Serving is one process:
+launched with the ``FEWSHOT_*`` variables of several processes it exits,
+as the JAX server does.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
 import queue
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
@@ -73,22 +93,36 @@ class Generator:
     The first queued request opens a window of `batch_deadline_ms`; what
     arrives in time shares one device call.  Unused rows are padded with
     the first request's artist and temperature.  device=None means CUDA
-    (and raises without a card)."""
+    (and raises without a card); `devices`, a list, shards each batch's
+    rows over those devices (the module docstring)."""
 
     def __init__(self, cfg, corpus, params, batch_size: int | None = None,
                  batch_deadline_ms: float = 5.0,
-                 device: torch.device | str | None = None):
-        self.device = resolve_device(device)
+                 device: torch.device | str | None = None,
+                 devices: list | None = None):
+        self.devices = [resolve_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
         lm_mod.check_supported(cfg)
         self.cfg = cfg
         self.corpus = corpus
-        self.batch = batch_size or max(4, cfg.batch_size)
+        n = len(self.devices)
+        self.batch = -(-(batch_size or max(4, cfg.batch_size)) // n) * n
         self.deadline = batch_deadline_ms / 1e3
-        self.params = params.to(self.device)
-        self.data = eps.put_corpus(corpus, self.device)
+        # one replica of the parameters, corpus and masks per device (the
+        # first device's parameters are the caller's module, moved)
+        self._replicas = [
+            (params.to(d) if i == 0 else copy.deepcopy(params).to(d),
+             eps.put_corpus(corpus, d),
+             sampling_mod.grammar_masks(cfg, corpus, d))
+            for i, d in enumerate(self.devices)]
+        self.params, self.data, self.token_masks = self._replicas[0]
+        # the chunks of each distinct device, decoded by one thread each
+        self._groups: dict = {}
+        for i, d in enumerate(self.devices):
+            self._groups.setdefault(d, []).append(i)
+        self._pool = (ThreadPoolExecutor(len(self._groups))
+                      if len(self._groups) > 1 else None)
         self.splits = {k: np.asarray(v) for k, v in corpus.splits.items()}
-        self.token_masks = sampling_mod.grammar_masks(cfg, corpus,
-                                                      self.device)
         self._artist_index = {name: i for i, name
                               in enumerate(corpus.artist_names)}
         self._queue: "queue.Queue[_Request | None]" = queue.Queue()
@@ -102,22 +136,44 @@ class Generator:
         """Stop the batching worker (requests after this never complete)."""
         self._queue.put(None)
         self._worker.join(timeout=60)
+        if self._pool is not None:
+            self._pool.shutdown()
 
     # -- device call over fully per-row specs ---------------------------------
 
     def _run_batch(self, artists: np.ndarray, seeds: np.ndarray,
                    temps: np.ndarray) -> np.ndarray:
+        rows = len(seeds) // len(self.devices)
+
+        def run_group(dev, chunks):
+            with (torch.cuda.device(dev) if dev.type == "cuda"
+                  else contextlib.nullcontext()):
+                return [self._run_chunk(
+                    dev, *self._replicas[i], artists[i * rows:(i + 1) * rows],
+                    seeds[i * rows:(i + 1) * rows],
+                    temps[i * rows:(i + 1) * rows]).cpu().numpy()
+                    for i in chunks]
+        if self._pool is None:
+            outs = [run_group(d, c) for d, c in self._groups.items()]
+        else:
+            outs = [f.result() for f in [self._pool.submit(run_group, d, c)
+                                         for d, c in self._groups.items()]]
+        by_chunk = {}
+        for chunks, out in zip(self._groups.values(), outs):
+            by_chunk.update(zip(chunks, out))
+        return np.concatenate([by_chunk[i] for i in range(len(by_chunk))])
+
+    def _run_chunk(self, dev, params, data, masks, artists, seeds, temps):
+        """One device's rows: the episode draw, support pass and decode."""
         ep_gens = [sampling_mod.row_generator(s, 0) for s in seeds]
-        gen_gens = [sampling_mod.row_generator(s, 1, self.device)
-                    for s in seeds]
+        gen_gens = [sampling_mod.row_generator(s, 1, dev) for s in seeds]
         ep = eps.sample_episode_for_artists(
-            ep_gens, self.data, torch.as_tensor(artists),
+            ep_gens, data, torch.as_tensor(artists),
             k=self.cfg.support_size, q=self.cfg.query_size)
-        toks = sampling_mod.generate(
-            self.params, ep.support, ep.support_len, gen_gens, self.cfg,
-            temperature=torch.as_tensor(temps, device=self.device),
-            token_masks=self.token_masks)
-        return toks.cpu().numpy()
+        return sampling_mod.generate(
+            params, ep.support, ep.support_len, gen_gens, self.cfg,
+            temperature=torch.as_tensor(temps, device=dev),
+            token_masks=masks)
 
     def _row_specs(self, req: _Request, rng: np.random.RandomState):
         """Resolve one request into per-row (artist, seed, temp) arrays."""
@@ -300,6 +356,7 @@ def serve(gen: Generator, host: str = "127.0.0.1", port: int = 8476
 
 def serve_main(argv=None) -> None:
     from fewshot_torch.cli import _setup
+    from fewshot_torch.parallel.distributed import process_count
     from fewshot_torch.utils.ckpt import hparams_of, restore_params
 
     def flags(p):
@@ -307,7 +364,18 @@ def serve_main(argv=None) -> None:
         p.add_argument("--port", type=int, default=8476)
         p.add_argument("--serve_batch", type=int, default=None)
     args, cfg, corpus = _setup(argv, flags)
+    if process_count() > 1:
+        # each server's own HTTP stream would drive divergent collectives
+        sys.exit("fewshot_torch.serve is one process; launch it without "
+                 "FEWSHOT_COORDINATOR / FEWSHOT_NUM_PROCESSES (serving "
+                 "shards its rows over the local cards instead)")
     device = resolve_device(args.device)
+    # data_parallel on a bare "cuda" shards the rows over every visible card
+    where = {"device": device}
+    if cfg.data_parallel and device.type == "cuda" and device.index is None \
+            and torch.cuda.device_count() > 1:
+        where = {"devices": [torch.device("cuda", i)
+                             for i in range(torch.cuda.device_count())]}
     if args.checkpt_dir:
         # the latest step of a training run's directory, or a bare
         # params.npz; another vocab raises, other semantic hparams warn
@@ -321,11 +389,11 @@ def serve_main(argv=None) -> None:
         params = lm_mod.init_lm(cfg, len(corpus.vocab),
                                 torch.Generator().manual_seed(cfg.seed),
                                 device)
-    gen = Generator(cfg, corpus, params, args.serve_batch, device=device)
+    gen = Generator(cfg, corpus, params, args.serve_batch, **where)
     server = serve(gen, args.host, args.port)
     print(f"serving on http://{args.host}:{args.port} "
-          f"(device {device}, warmup {gen.warm_s:.1f}s, batch {gen.batch})",
-          flush=True)
+          f"(devices {', '.join(map(str, gen.devices))}, warmup "
+          f"{gen.warm_s:.1f}s, batch {gen.batch})", flush=True)
     server.serve_forever()
 
 

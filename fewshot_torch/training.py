@@ -1,6 +1,6 @@
 """Training core: optimizer, TrainState, the train step, evaluation.
 
-Port of ``fewshot/training.py`` on one device (``mesh=None``).  A step samples
+Port of ``fewshot/training.py``.  A step samples
 its episodes on the device (``data.episodes.sample_episode``), runs the
 forward and backward (the kernels' autograd Functions: the LSTM's and the
 head+CE's under ``cell="pallas"``, the transformer's attention under
@@ -19,6 +19,14 @@ Parameters (0-d ones included: the cache head's ``cache_gate.b`` and
 ``cache_prior.log_s``) and optimizer moments are updated in place
 (PyTorch tensors are mutable; the JAX step returns new arrays).  Nothing in a step reads a value
 back to the host, so a later change can capture it in a CUDA graph.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): each process draws
+batch_size / W episodes from its own generator (``mesh.rank_seed``), and
+the gradients, CE sum and token count are summed over the processes in one
+all-reduce before the division by the count, as JAX's shard_map step psums
+them.  Every function of a mesh takes it as ``mesh=`` (the CLI passes the
+process group's, ``make_mesh()``); a world of one draws and computes what
+the single process does, bit for bit.
 """
 
 from __future__ import annotations
@@ -32,6 +40,8 @@ from fewshot_torch.data.episodes import (CorpusOnDevice, gather_episode,
                                          sample_episode, sample_lm_batch)
 from fewshot_torch.device import resolve_device
 from fewshot_torch.models import lm as lm_mod
+from fewshot_torch.parallel.mesh import (Mesh, local_batch, rank_seed,
+                                         shard_step, sum_over)
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -119,14 +129,17 @@ def _seeds(seed: int) -> tuple[int, int]:
 
 
 def init_train_state(cfg, vocab_size: int, seed: int | None = None,
-                     device: torch.device | str | None = None) -> TrainState:
+                     device: torch.device | str | None = None,
+                     mesh: Mesh | None = None) -> TrainState:
     """Random parameters, a fresh optimizer state and a sampler generator
-    on `device` (cuda unless the caller names the CPU)."""
+    on `device` (cuda unless the caller names the CPU).  The parameters
+    are the same on every rank of `mesh`; the generator is the rank's
+    (``mesh.rank_seed``: a world of one keeps the single-process one)."""
     dev = resolve_device(device)
     s_init, s_run = _seeds(cfg.seed if seed is None else seed)
     params = lm_mod.init_lm(cfg, vocab_size,
                             torch.Generator().manual_seed(s_init), dev)
-    gen = torch.Generator(device=dev).manual_seed(s_run)
+    gen = torch.Generator(device=dev).manual_seed(rank_seed(s_run, mesh))
     return TrainState(params, make_optimizer(cfg).init(params), 0, gen)
 
 
@@ -181,32 +194,43 @@ def _grads(params, loss_fn):
     return grads, total, count
 
 
-def make_train_step(cfg, data: CorpusOnDevice, split_artists):
+def make_train_step(cfg, data: CorpusOnDevice, split_artists,
+                    mesh: Mesh | None = None):
     """The train step: state -> (state, metrics).  `split_artists` is the
     train split's artist ids (or the song pool for task="lm") on the
-    corpus device."""
+    corpus device.  Under a mesh each rank samples batch_size / W episodes
+    and the sums are all-reduced."""
     apply = _make_apply(cfg, make_optimizer(cfg))
+    rows = local_batch(cfg.batch_size, mesh)
+
+    def local_grads(state: TrainState):
+        return _grads(state.params, lambda: _loss_stats(
+            state.params, cfg, data, split_artists, state.gen, rows,
+            train=True))
+    sharded = shard_step(mesh, local_grads)
 
     def train_step(state: TrainState):
-        grads, total, count = _grads(state.params, lambda: _loss_stats(
-            state.params, cfg, data, split_artists, state.gen,
-            cfg.batch_size, train=True))
-        return apply(state, grads, total, count)
+        return apply(state, *sharded(state))
     return train_step
 
 
-def make_fed_train_step(cfg):
+def make_fed_train_step(cfg, mesh: Mesh | None = None):
     """The train step on an episode given as an argument:
-    (state, episode) -> (state, metrics)."""
+    (state, episode) -> (state, metrics).  Under a mesh the episode is
+    this rank's rows of the batch (``HostEpisodePipeline(rank=, world=)``)
+    and the sums are all-reduced."""
     apply = _make_apply(cfg, make_optimizer(cfg))
 
-    def train_step(state: TrainState, ep):
+    def local_grads(state: TrainState, ep):
         drop = state.gen if cfg.dropout > 0 else None
-        grads, total, count = _grads(
+        return _grads(
             state.params,
             lambda: lm_mod.episodic_nll_stats(state.params, ep, cfg,
                                               drop=drop))
-        return apply(state, grads, total, count)
+    sharded = shard_step(mesh, local_grads)
+
+    def train_step(state: TrainState, ep):
+        return apply(state, *sharded(state, ep))
     return train_step
 
 
@@ -224,13 +248,18 @@ def make_multi_step(train_step, k: int):
     return multi
 
 
-def make_eval_step(cfg, data: CorpusOnDevice, split_artists):
+def make_eval_step(cfg, data: CorpusOnDevice, split_artists,
+                   mesh: Mesh | None = None):
     """Eval on one batch sampled on the device: (params, gen) -> (ce_sum,
-    count), forward only (eval_mode: no aux terms, no grads)."""
+    count), forward only (eval_mode: no aux terms, no grads).  Under a
+    mesh each rank evaluates batch_size / W episodes from its own
+    generator and the pair is all-reduced."""
+    rows = local_batch(cfg.batch_size, mesh)
+
     def eval_step(params, gen: torch.Generator):
         with torch.no_grad():
-            return _loss_stats(params, cfg, data, split_artists, gen,
-                               cfg.batch_size)
+            pair = _loss_stats(params, cfg, data, split_artists, gen, rows)
+        return sum_over(mesh, pair)
     return eval_step
 
 
@@ -243,17 +272,21 @@ def make_fed_eval_step(cfg):
 
 
 def evaluate_fed(cfg, params, pipe, num_episodes: int | None = None,
-                 eval_step=None) -> float:
+                 eval_step=None, mesh: Mesh | None = None) -> float:
     """Average NLL/token over episodes drawn from `pipe`, any iterator of
     Episodes (its ``batch`` attribute, else cfg.batch_size, is the episodes
     a draw holds): num_episodes // batch draws, at least one.  Every
-    draw's pair is added on the device and one pair is read at the end."""
+    draw's pair is added on the device and one pair is read at the end.
+    Under a mesh `pipe` yields this rank's rows of each draw
+    (``HostEpisodePipeline(rank=, world=)``) and the pair is summed over
+    the ranks (one all-reduce a call)."""
     n = num_episodes if num_episodes is not None else cfg.eval_episodes
     step = eval_step if eval_step is not None else make_fed_eval_step(cfg)
     batch = getattr(pipe, "batch", cfg.batch_size)
     stats = [torch.stack(step(params, next(pipe)))
              for _ in range(max(1, n // batch))]
-    total, count = torch.stack(stats).sum(dim=0).tolist()
+    pair, = sum_over(mesh, [torch.stack(stats).sum(dim=0)])
+    total, count = pair.tolist()
     return total / max(count, 1.0)
 
 
@@ -286,8 +319,10 @@ def mean_nll(step, params, gen: torch.Generator, cfg,
 
 
 def evaluate(cfg, params, data: CorpusOnDevice, split_artists,
-             gen: torch.Generator, num_episodes: int | None = None) -> float:
+             gen: torch.Generator, num_episodes: int | None = None,
+             mesh: Mesh | None = None) -> float:
     """Average query NLL/token over num_episodes // batch_size batches
-    sampled from gen on the corpus device (``mean_nll``)."""
-    return mean_nll(make_eval_step(cfg, data, split_artists), params, gen,
-                    cfg, num_episodes)
+    sampled from gen on the corpus device (``mean_nll``); under a mesh,
+    gen is the rank's and the batches are split over the ranks."""
+    return mean_nll(make_eval_step(cfg, data, split_artists, mesh), params,
+                    gen, cfg, num_episodes)

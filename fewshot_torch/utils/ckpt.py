@@ -13,6 +13,14 @@ restore under other values warns about.  A step is written under a
 temporary name and renamed into place, so a killed save leaves no
 half-written step; the newest ``max_to_keep`` steps are kept.  Saves are
 synchronous: nothing is left in flight at exit.
+
+Under a data mesh of W > 1 processes, ``rng.npz`` holds every rank's
+generator state (``gens``, row r for rank r): rank 0 gathers them and does
+every write while the other ranks wait at a barrier, and a restore under
+another world size raises.  A world of one writes the single-process file
+(``gen``).  A file holding ``seed`` in place of a state (written by
+``orbax_to_torch.py``, which cannot carry JAX's key over) seeds each
+rank's generator on restore with the rank's seed of it (``rank_seed``).
 """
 
 from __future__ import annotations
@@ -26,6 +34,8 @@ import numpy as np
 import torch
 
 from fewshot_torch import bridge
+from fewshot_torch.parallel.mesh import (barrier, gather_objects, rank_seed,
+                                        world_of)
 
 # Hyperparameters whose value changes the model's function without changing
 # any parameter shape (num_heads splits the same fused [E, 3E] QKV
@@ -65,11 +75,21 @@ def _write_json(path: Path, obj) -> None:
 
 def save_checkpoint(ckpt_dir: str | Path, state, vocab_hash: str = "",
                     hparams: dict | None = None,
-                    max_to_keep: int = MAX_TO_KEEP) -> Path:
+                    max_to_keep: int = MAX_TO_KEEP, mesh=None) -> Path:
     """Write state (a ``training.TrainState``) as ``<ckpt_dir>/<step>/``
     and prune all but the newest max_to_keep steps.  Returns the step's
-    directory."""
-    d = Path(ckpt_dir)
+    directory.  Every rank of `mesh` calls it; rank 0 writes."""
+    gens = gather_objects(state.gen.get_state().numpy(), mesh)
+    final = Path(ckpt_dir) / str(int(state.step))
+    if mesh is None or mesh.rank == 0:
+        _write_step(Path(ckpt_dir), state, vocab_hash, hparams, max_to_keep,
+                    gens)
+    barrier(mesh)
+    return final
+
+
+def _write_step(d: Path, state, vocab_hash: str, hparams: dict | None,
+                max_to_keep: int, gens: list) -> None:
     d.mkdir(parents=True, exist_ok=True)
     meta = {"vocab_hash": vocab_hash}
     if hparams:
@@ -85,7 +105,10 @@ def save_checkpoint(ckpt_dir: str | Path, state, vocab_hash: str = "",
     np.savez(tmp / "opt.npz", count=count,
              **{f"mu:{k}": v for k, v in bridge.flatten(mu).items()},
              **{f"nu:{k}": v for k, v in bridge.flatten(nu).items()})
-    np.savez(tmp / "rng.npz", gen=state.gen.get_state().numpy())
+    if len(gens) == 1:
+        np.savez(tmp / "rng.npz", gen=gens[0])
+    else:
+        np.savez(tmp / "rng.npz", gens=np.stack(gens))
     (tmp / "step.json").write_text(json.dumps({"step": step}))
     final = d / str(step)
     if final.exists():              # the same step saved again
@@ -97,7 +120,6 @@ def save_checkpoint(ckpt_dir: str | Path, state, vocab_hash: str = "",
         os.replace(tmp, final)
     for s in steps(d)[:-max_to_keep]:
         shutil.rmtree(d / str(s))
-    return final
 
 
 def _check_meta(d: Path, vocab_hash: str, hparams: dict | None) -> None:
@@ -121,11 +143,32 @@ def _check_meta(d: Path, vocab_hash: str, hparams: dict | None) -> None:
                       f"{k}={saved} to match the checkpoint", flush=True)
 
 
+def _restore_generator(path: Path, gen: torch.Generator, mesh) -> None:
+    """Set gen to this rank's state in rng.npz, or seed it with the rank's
+    seed of the file's (``mesh.rank_seed``: the ranks draw different
+    episodes, and a world of one takes the seed itself)."""
+    world = world_of(mesh)
+    with np.load(path) as z:
+        if "seed" in z.files:
+            gen.manual_seed(rank_seed(int(z["seed"]), mesh))
+            return
+        saved = len(z["gens"]) if "gens" in z.files else 1
+        if saved != world:
+            raise ValueError(
+                f"checkpoint {path.parent} was written by {saved} "
+                f"process(es) and this run has {world}: the episode "
+                f"generators cannot be split anew; resume with "
+                f"FEWSHOT_NUM_PROCESSES={saved}")
+        state = z["gens"][mesh.rank] if world > 1 else z["gen"]
+    gen.set_state(torch.from_numpy(state.copy()))
+
+
 def recover_or_init(ckpt_dir: str | Path | None, init_state,
-                    vocab_hash: str = "", hparams: dict | None = None):
+                    vocab_hash: str = "", hparams: dict | None = None,
+                    mesh=None):
     """Restore the latest checkpoint if there is one, else the given init
-    state (its parameters' device and its generator are kept).  Returns
-    (state, restored)."""
+    state (its parameters' device and its generator are kept).  Under
+    `mesh`, the rank's generator state.  Returns (state, restored)."""
     if ckpt_dir is None:
         return init_state, False
     d = Path(ckpt_dir)
@@ -148,8 +191,7 @@ def recover_or_init(ckpt_dir: str | Path | None, init_state,
         nu = bridge.unflatten({k[3:]: z[k] for k in z.files
                                if k.startswith("nu:")})
         opt = bridge.adam_state_from_numpy(z["count"], mu, nu, dev)
-    with np.load(src / "rng.npz") as z:
-        init_state.gen.set_state(torch.from_numpy(z["gen"].copy()))
+    _restore_generator(src / "rng.npz", init_state.gen, mesh)
     step = json.loads((src / "step.json").read_text())["step"]
     return init_state._replace(params=params, opt_state=opt,
                                step=step), True

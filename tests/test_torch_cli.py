@@ -19,8 +19,10 @@ temporary directory; the CLI trains a small LSTM with the full cache stack
 * ``max_to_keep`` keeps the newest three steps, and a step is renamed into
   place (no temporary directory is left);
 * ``metrics.jsonl`` holds loss, episodes_per_sec and val_nll lines;
-* ``pipeline: host`` raises NotImplementedError; ``--debug_nans`` passes a
-  finite run, and ``--profile_dir`` writes a trace.
+* ``pipeline: host`` exits on ``task: lm`` with the JAX package's message
+  and trains an episodic run under ``--debug_nans`` (the checked fed
+  step); ``--debug_nans`` passes a finite run, and ``--profile_dir`` writes
+  a trace.
 """
 
 import dataclasses
@@ -200,10 +202,18 @@ def test_misaligned_resume_exits(corpus_dir, tmp_path):
 
 
 def test_host_pipeline_raises_and_debug_nans_runs(corpus_dir, tmp_path):
-    """pipeline: host is refused; --debug_nans and --profile_dir (a trace
-    of steps 10-20, one step a chunk) run a finite run to its end."""
-    with pytest.raises(NotImplementedError, match="pipeline: host"):
-        _train(corpus_dir, tmp_path / "a", "pipeline=host", steps=2)
+    """pipeline: host is refused for task: lm (as the JAX package refuses
+    it) and trains an episodic run one fed step a call under --debug_nans;
+    --debug_nans and --profile_dir (a trace of steps 10-20, one step a
+    chunk) run a finite run to its end."""
+    with pytest.raises(SystemExit, match="pipeline: host supports only"):
+        _train(corpus_dir, tmp_path / "a", "pipeline=host", "task=lm",
+               "support_cache=false", "cache_calib=false",
+               "cache_dynamic=false", steps=2)
+    cli.main(["train", "--device", "cpu", "--debug_nans", "--checkpt_dir",
+              str(tmp_path / "h"), "--set", f"corpus_dir={corpus_dir}",
+              "max_steps=4", *SET, "pipeline=host"])
+    assert ckpt.latest_step(tmp_path / "h") == 4
     cli.main(["train", "--device", "cpu", "--debug_nans", "--profile_dir",
               str(tmp_path / "prof"), "--checkpt_dir", str(tmp_path / "b"),
               "--set", f"corpus_dir={corpus_dir}", "max_steps=20", *SET])

@@ -179,7 +179,11 @@ def test_isolation_guard_sources():
             "fewshot_torch/cli.py", "fewshot_torch/utils/ckpt.py",
             "fewshot_torch/utils/metrics.py", "fewshot_torch/data/midi.py",
             "fewshot_torch/data/bpe.py",
-            "fewshot_torch/models/base.py"} <= names
+            "fewshot_torch/models/base.py",
+            "fewshot_torch/data/host_pipeline.py",
+            "fewshot_torch/data/native.py",
+            "fewshot_torch/parallel/mesh.py",
+            "fewshot_torch/parallel/distributed.py"} <= names
     for f in files:
         hits = _BANNED.findall(f.read_text())
         assert not hits, (f, hits)
@@ -244,3 +248,18 @@ def test_lstm_sources_have_no_atomics():
     for f in files:
         code = re.sub(r"//[^\n]*|/\*.*?\*/", "", f.read_text(), flags=re.S)
         assert not _ATOMIC.search(code), f
+
+
+def test_every_package_is_packaged():
+    """pyproject.toml lists every directory of fewshot_torch/ that has an
+    __init__.py, and ships the C++/CUDA sources the packages build."""
+    import tomllib
+    conf = tomllib.loads((REPO / "pyproject.toml").read_text())["tool"][
+        "setuptools"]
+    found = {p.parent.relative_to(REPO).as_posix().replace("/", ".")
+             for p in (REPO / "fewshot_torch").rglob("__init__.py")}
+    assert {"fewshot_torch.utils", "fewshot_torch.parallel"} <= found
+    assert found <= set(conf["packages"])
+    for pkg in ("fewshot_torch.ops", "fewshot_torch.data"):
+        assert conf["package-data"][pkg] == ["csrc/*"]
+        assert any((REPO / pkg.replace(".", "/") / "csrc").iterdir())
