@@ -26,6 +26,12 @@ a token is drawn by Gumbel-max (argmax of logits + Gumbel noise, which is a
 draw from softmax(logits)).  A row's tokens therefore depend only on its
 own generator, never on its position in the batch.  JAX's threefry streams
 cannot be reproduced, so the parity tests compare greedy decoding.
+
+Profiler spans (``utils.metrics.span``): ``sample.generate`` a call, holding
+``sample.support`` (support pass, prefill, cache posterior),
+``sample.noise`` and ``sample.decode``; the decode loop holds one
+``sample.decode_step`` a step that runs and one ``sample.sync`` an
+early-exit test.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from fewshot_torch.data.vocab import BOS, EOS, PAD
 from fewshot_torch.models import lm as lm_mod
 from fewshot_torch.models import lstm as lstm_mod
 from fewshot_torch.models import transformer as tfm_mod
+from fewshot_torch.utils.metrics import span
 
 # Early exit tests "every row has emitted EOS" once per this many tokens
 # (each test waits for the device); rows that finished emit PAD meanwhile,
@@ -154,7 +161,8 @@ def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
             else torch.as_tensor(temperature, dtype=torch.float32,
                                  device=dev).expand(b))
     vocab = params.out_b.shape[0]
-    noise = gumbel_noise(generators, n_tokens, vocab, dev)
+    with span("sample.noise"):
+        noise = gumbel_noise(generators, n_tokens, vocab, dev)
     tok = torch.full((b,), BOS, dtype=torch.int64, device=dev)
     done = torch.zeros((b,), dtype=torch.bool, device=dev)
     toks = torch.full((b, n_tokens), PAD, dtype=torch.int64, device=dev)
@@ -166,29 +174,36 @@ def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
         token_masks = torch.as_tensor(token_masks, dtype=torch.bool,
                                       device=dev)
         phase = torch.zeros((b,), dtype=torch.int64, device=dev)
-    for i in range(n_tokens):
-        if early_exit and i and i % EXIT_CHECK_EVERY == 0 \
-                and bool(done.all()):
-            break
-        h = step(tok, i)
-        logits = lm_mod.head_logits(params, h, cfg)
-        if ctx is not None:
-            # sample from the same mixture the NLL scores
-            log_cache = (_dynamic_log_cache(ctx, c_pre, n_pre) if dynamic
-                         else ctx[1])
-            logits = lm_mod.cache_mixed_logp(params, logits, h, log_cache)
-        if token_masks is not None:
-            logits = logits.masked_fill(~token_masks[phase], float("-inf"))
-        nxt = filtered_sample(noise[i], logits, temp, cfg.top_k, cfg.top_p)
-        nxt = nxt.masked_fill(done, PAD)
-        done = done | (nxt == EOS)
-        if token_masks is not None:
-            phase = torch.where(done, phase,
-                                (phase + 1) % token_masks.shape[0])
-        if dynamic:
-            c_pre, n_pre = _count_emitted(c_pre, n_pre, nxt)
-        toks[:, i] = nxt
-        tok = nxt
+    with span("sample.decode"):
+        for i in range(n_tokens):
+            if early_exit and i and i % EXIT_CHECK_EVERY == 0:
+                with span("sample.sync"):
+                    finished = bool(done.all())
+                if finished:
+                    break
+            with span("sample.decode_step"):
+                h = step(tok, i)
+                logits = lm_mod.head_logits(params, h, cfg)
+                if ctx is not None:
+                    # sample from the same mixture the NLL scores
+                    log_cache = (_dynamic_log_cache(ctx, c_pre, n_pre)
+                                 if dynamic else ctx[1])
+                    logits = lm_mod.cache_mixed_logp(params, logits, h,
+                                                     log_cache)
+                if token_masks is not None:
+                    logits = logits.masked_fill(~token_masks[phase],
+                                                float("-inf"))
+                nxt = filtered_sample(noise[i], logits, temp, cfg.top_k,
+                                      cfg.top_p)
+                nxt = nxt.masked_fill(done, PAD)
+                done = done | (nxt == EOS)
+                if token_masks is not None:
+                    phase = torch.where(done, phase,
+                                        (phase + 1) % token_masks.shape[0])
+                if dynamic:
+                    c_pre, n_pre = _count_emitted(c_pre, n_pre, nxt)
+                toks[:, i] = nxt
+                tok = nxt
     return toks
 
 
@@ -199,11 +214,14 @@ def sample_lstm(params, support: torch.Tensor, support_len: torch.Tensor,
     b = support.shape[0]
     dev = support.device
     dt = lm_mod.compute_dtype(cfg)
-    if cfg.support_mode in ("state", "mean_state"):
-        state = lm_mod.support_state(params, support, support_len, cfg,
-                                     eval_mode=True)
-    else:
-        state = lstm_mod.zero_state(b, cfg.hidden_dim, cfg.num_layers, dev)
+    with span("sample.support"):
+        if cfg.support_mode in ("state", "mean_state"):
+            state = lm_mod.support_state(params, support, support_len, cfg,
+                                         eval_mode=True)
+        else:
+            state = lstm_mod.zero_state(b, cfg.hidden_dim, cfg.num_layers,
+                                        dev)
+        ctx = _cache_ctx(params, support, support_len, cfg)
 
     def step(tok, _):
         nonlocal state
@@ -211,9 +229,7 @@ def sample_lstm(params, support: torch.Tensor, support_len: torch.Tensor,
                                       state, dt)
         return h
     return _decode(params, step, b, dev, generators, cfg, n_tokens,
-                   temperature, early_exit,
-                   _cache_ctx(params, support, support_len, cfg),
-                   token_masks)
+                   temperature, early_exit, ctx, token_masks)
 
 
 def sample_transformer(params, support: torch.Tensor,
@@ -225,8 +241,10 @@ def sample_transformer(params, support: torch.Tensor,
     support songs (support_mode state or mean_state) prefill the cache in
     one pass, then position K L + i decodes token i.  support [B, K, L] ->
     tokens [B, n]."""
-    cache, prefix_len = prefix_cache(params, support, support_len, cfg,
-                                     n_tokens + 1)
+    with span("sample.support"):
+        cache, prefix_len = prefix_cache(params, support, support_len, cfg,
+                                         n_tokens + 1)
+        ctx = _cache_ctx(params, support, support_len, cfg)
 
     def step(tok, i):
         h, _ = tfm_mod.transformer_step(params.transformer,
@@ -234,8 +252,7 @@ def sample_transformer(params, support: torch.Tensor,
                                         prefix_len + i, cfg)
         return h
     return _decode(params, step, support.shape[0], support.device,
-                   generators, cfg, n_tokens, temperature, early_exit,
-                   _cache_ctx(params, support, support_len, cfg),
+                   generators, cfg, n_tokens, temperature, early_exit, ctx,
                    token_masks)
 
 
@@ -274,27 +291,29 @@ def generate(params, support: torch.Tensor, support_len: torch.Tensor,
     it differentiates), then each row decodes alone under its own copy, a
     loop over the rows (a row's tokens still depend on its generator
     only)."""
-    lm_mod.check_supported(cfg)
-    n = n_tokens if n_tokens is not None else cfg.sample_tokens
-    fn = sample_lstm if cfg.model == "lstm" else sample_transformer
-    if cfg.support_mode != "finetune":
+    with span("sample.generate"):
+        lm_mod.check_supported(cfg)
+        n = n_tokens if n_tokens is not None else cfg.sample_tokens
+        fn = sample_lstm if cfg.model == "lstm" else sample_transformer
+        if cfg.support_mode != "finetune":
+            with torch.inference_mode():
+                return fn(params, support, support_len, generators, cfg, n,
+                          temperature, early_exit, token_masks)
+        b = support.shape[0]
+        if len(generators) != b:
+            raise ValueError(f"need one generator per row ({b}), got "
+                             f"{len(generators)}")
+        adapted = lm_mod.finetune_adapt(params, support, support_len, cfg)
+        temps = (None if temperature is None else torch.as_tensor(
+            temperature, dtype=torch.float32).expand(b))
+        rows = []
         with torch.inference_mode():
-            return fn(params, support, support_len, generators, cfg, n,
-                      temperature, early_exit, token_masks)
-    b = support.shape[0]
-    if len(generators) != b:
-        raise ValueError(f"need one generator per row ({b}), got "
-                         f"{len(generators)}")
-    adapted = lm_mod.finetune_adapt(params, support, support_len, cfg)
-    temps = (None if temperature is None else torch.as_tensor(
-        temperature, dtype=torch.float32).expand(b))
-    rows = []
-    with torch.inference_mode():
-        for i in range(b):
-            rows.append(functional_call(
-                params, {k: v[i] for k, v in adapted.items()},
-                (fn, support[i:i + 1], support_len[i:i + 1],
-                 generators[i:i + 1], cfg, n,
-                 None if temps is None else temps[i:i + 1], early_exit,
-                 token_masks)))
-    return torch.cat(rows)
+            for i in range(b):
+                with span("sample.generate"):
+                    rows.append(functional_call(
+                        params, {k: v[i] for k, v in adapted.items()},
+                        (fn, support[i:i + 1], support_len[i:i + 1],
+                         generators[i:i + 1], cfg, n,
+                         None if temps is None else temps[i:i + 1], early_exit,
+                         token_masks)))
+        return torch.cat(rows)

@@ -72,10 +72,13 @@ from fewshot_torch.models import lm as lm_mod
 
 
 class _Request:
-    """One /generate call waiting for its rows of a batched device call."""
+    """One /generate call waiting for its rows of a batched device call.
+    latency: seconds from its submission to its result; queue_s: the part
+    of it before its batch's device call began."""
 
     __slots__ = ("num", "artist_id", "split", "seed", "temperature",
-                 "event", "toks", "artists", "latency", "error")
+                 "event", "toks", "artists", "t_submit", "queue_s",
+                 "latency", "error")
 
     def __init__(self, num, artist_id, split, seed, temperature):
         self.num = num
@@ -85,6 +88,8 @@ class _Request:
         self.temperature = temperature
         self.event = threading.Event()
         self.toks = self.artists = self.latency = self.error = None
+        self.t_submit = time.perf_counter()
+        self.queue_s = None
 
 
 class Generator:
@@ -233,13 +238,13 @@ class Generator:
                     temps = np.concatenate([temps,
                                             np.repeat(temps[:1], pad)])
                 t0 = time.perf_counter()
+                for r in reqs:
+                    r.queue_s = t0 - r.t_submit
                 toks = self._run_batch(artists, seeds, temps)
-                dt = time.perf_counter() - t0
                 pos = 0
                 for r in reqs:
                     r.toks = toks[pos:pos + r.num]
                     r.artists = artists[pos:pos + r.num]
-                    r.latency = dt
                     pos += r.num
             except Exception as e:                        # noqa: BLE001
                 # the worker must outlive a failed batch; each waiting
@@ -259,6 +264,7 @@ class Generator:
         req = _Request(num, artist_id, split, seed, temperature)
         self._queue.put(req)
         req.event.wait()
+        req.latency = time.perf_counter() - req.t_submit
         if req.error is not None:
             raise req.error
         return req
@@ -288,7 +294,8 @@ class Generator:
             name = (self.corpus.artist_names[a]
                     if self.corpus.artist_names else str(a))
             rec = {"artist": name, "tokens": len(words),
-                   "latency_s": round(req.latency, 4)}
+                   "latency_s": round(req.latency, 4),
+                   "queue_s": round(req.queue_s, 4)}
             if self.cfg.dataset == "midi":
                 rec["events"] = words
                 rec["notes"] = len(midi_mod.events_to_notes(words))

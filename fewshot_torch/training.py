@@ -5,7 +5,10 @@ its episodes on the device (``data.episodes.sample_episode``), runs the
 forward and backward (the kernels' autograd Functions: the LSTM's and the
 head+CE's under ``cell="pallas"``, the transformer's attention under
 ``prefix_flash``), divides the gradients (CE sums) by the token count, and
-applies the optax chain of the JAX package by hand:
+applies the optax chain of the JAX package by hand.  The step and its
+phases are profiler spans (``utils.metrics.span``): ``train.step`` holding
+``episodes.draw``, ``model.forward``, ``model.backward``, ``optim.apply``.
+The optimizer chain:
 
 * ``clip_by_global_norm``: scale only when the norm reaches the maximum,
   and then by max / norm (``torch.nn.utils.clip_grad_norm_`` adds 1e-6
@@ -42,6 +45,7 @@ from fewshot_torch.device import resolve_device
 from fewshot_torch.models import lm as lm_mod
 from fewshot_torch.parallel.mesh import (Mesh, local_batch, rank_seed,
                                          shard_step, sum_over)
+from fewshot_torch.utils.metrics import span
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -153,13 +157,18 @@ def _loss_stats(params, cfg, data: CorpusOnDevice, split_artists, gen,
     rng.npz) carries both streams."""
     drop = gen if (train and cfg.dropout > 0) else None
     if cfg.task == "episodic":
-        ep = sample_episode(gen, data, split_artists, batch_size,
-                            k=cfg.support_size, q=cfg.query_size)
-        return lm_mod.episodic_nll_stats(params, ep, cfg,
-                                         eval_mode=not train, drop=drop)
-    tokens, lengths = sample_lm_batch(gen, data, split_artists, batch_size)
-    return lm_mod.lm_nll_stats(params, tokens, lengths, cfg,
-                               eval_mode=not train, drop=drop)
+        with span("episodes.draw"):
+            ep = sample_episode(gen, data, split_artists, batch_size,
+                                k=cfg.support_size, q=cfg.query_size)
+        with span("model.forward"):
+            return lm_mod.episodic_nll_stats(params, ep, cfg,
+                                             eval_mode=not train, drop=drop)
+    with span("episodes.draw"):
+        tokens, lengths = sample_lm_batch(gen, data, split_artists,
+                                          batch_size)
+    with span("model.forward"):
+        return lm_mod.lm_nll_stats(params, tokens, lengths, cfg,
+                                   eval_mode=not train, drop=drop)
 
 
 def global_norm(grads: dict) -> torch.Tensor:
@@ -169,13 +178,14 @@ def global_norm(grads: dict) -> torch.Tensor:
 def _make_apply(cfg, opt: Optimizer):
     """The grad-normalize + optimizer update half of a train step."""
     def apply(state: TrainState, grads: dict, total, count):
-        # grads are CE sums; normalize by the token count
-        inv = 1.0 / count.clamp_min(1.0)
-        grads = {k: g * inv for k, g in grads.items()}
-        g_norm = global_norm(grads)
-        opt.update_(grads, state.opt_state, state.params, g_norm)
-        metrics = {"loss": total.detach() * inv, "tokens": count,
-                   "grad_norm": g_norm}
+        with span("optim.apply"):
+            # grads are CE sums; normalize by the token count
+            inv = 1.0 / count.clamp_min(1.0)
+            grads = {k: g * inv for k, g in grads.items()}
+            g_norm = global_norm(grads)
+            opt.update_(grads, state.opt_state, state.params, g_norm)
+            metrics = {"loss": total.detach() * inv, "tokens": count,
+                       "grad_norm": g_norm}
         return state._replace(step=state.step + 1), metrics
     return apply
 
@@ -186,7 +196,8 @@ def _grads(params, loss_fn):
     for p in params.parameters():
         p.grad = None
     total, count = loss_fn()
-    total.backward()
+    with span("model.backward"):
+        total.backward()
     grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
              for k, p in params.named_parameters()}
     for p in params.parameters():
@@ -210,7 +221,8 @@ def make_train_step(cfg, data: CorpusOnDevice, split_artists,
     sharded = shard_step(mesh, local_grads)
 
     def train_step(state: TrainState):
-        return apply(state, *sharded(state))
+        with span("train.step"):
+            return apply(state, *sharded(state))
     return train_step
 
 
@@ -223,14 +235,17 @@ def make_fed_train_step(cfg, mesh: Mesh | None = None):
 
     def local_grads(state: TrainState, ep):
         drop = state.gen if cfg.dropout > 0 else None
-        return _grads(
-            state.params,
-            lambda: lm_mod.episodic_nll_stats(state.params, ep, cfg,
-                                              drop=drop))
+
+        def loss():
+            with span("model.forward"):
+                return lm_mod.episodic_nll_stats(state.params, ep, cfg,
+                                                 drop=drop)
+        return _grads(state.params, loss)
     sharded = shard_step(mesh, local_grads)
 
     def train_step(state: TrainState, ep):
-        return apply(state, *sharded(state, ep))
+        with span("train.step"):
+            return apply(state, *sharded(state, ep))
     return train_step
 
 

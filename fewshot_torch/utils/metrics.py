@@ -1,7 +1,9 @@
 """Metrics: JSONL file + stdout, and step timing for episodes/sec.
 
 Port of ``fewshot/utils/metrics.py``.  The headline metrics are the query
-NLL per token and episodes per second.  ``tensorboard=True`` also writes
+NLL per token and episodes per second.  ``span`` names the program's
+ranges (train step and its phases, sampling and its decode loop) for
+``torch.profiler``.  ``tensorboard=True`` also writes
 scalars through ``torch.utils.tensorboard`` where its ``tensorboard``
 package is installed, and quietly writes nothing where it is not, as the
 JAX package does without tensorflow.
@@ -9,9 +11,12 @@ JAX package does without tensorflow.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import time
 from pathlib import Path
+
+import torch
 
 
 class MetricsLogger:
@@ -74,3 +79,17 @@ class Throughput:
             return 0.0
         dt = time.perf_counter() - self._t0
         return self._episodes / dt if dt > 0 else 0.0
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the program (``layer.phase``) on the profiler's
+    clock: ``torch.profiler.record_function(name)`` while a profiler
+    records, so the range and its nesting land in any ``torch.profiler``
+    trace (e.g. ``cli.py --profile_dir``); otherwise one shared null
+    context, which allocates nothing and touches no device."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.autograd.profiler.record_function(name)

@@ -1,0 +1,9 @@
+"""Layer: model backward.  Device busy ms per train step inside the
+program's ``model.backward`` spans over its ``train.step`` spans, from
+the host-recorded pass.  Moves train_eps_per_s."""
+
+from portbench.metrics._spans import busy_ms_per
+
+
+def read(ctx):
+    return busy_ms_per(ctx, "model.backward", "train.step")

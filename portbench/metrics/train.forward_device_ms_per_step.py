@@ -1,0 +1,10 @@
+"""Layer: model forward.  Device busy ms per train step inside the
+program's ``model.forward`` spans (the draw excluded) over its
+``train.step`` spans, from the host-recorded pass.  Moves
+train_eps_per_s."""
+
+from portbench.metrics._spans import busy_ms_per
+
+
+def read(ctx):
+    return busy_ms_per(ctx, "model.forward", "train.step")

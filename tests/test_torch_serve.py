@@ -118,9 +118,23 @@ def test_seed_reproducible_regardless_of_batching(server):
             assert f.result(timeout=120)[0] == 200
         status, got = target.result(timeout=120)
     assert status == 200
-    assert got["continuations"][0] == {**ref["continuations"][0],
-                                       "latency_s":
-                                       got["continuations"][0]["latency_s"]}
+    timing = {k: got["continuations"][0][k] for k in ("latency_s",
+                                                        "queue_s")}
+    assert got["continuations"][0] == {**ref["continuations"][0], **timing}
+
+
+def test_latency_counts_the_queue_wait(server):
+    """latency_s runs from the request's submission to its result, so it
+    holds queue_s, the wait before its batch's device call (three full
+    batches at once: some wait behind another's call)."""
+    with cf.ThreadPoolExecutor(max_workers=3) as ex:
+        futs = [ex.submit(_post, server, {"num": 4, "split": "train",
+                                          "episode_seed": s})
+                for s in range(3)]
+        recs = [f.result(timeout=120)[1]["continuations"][0] for f in futs]
+    for rec in recs:
+        assert rec["latency_s"] >= rec["queue_s"] >= 0
+        assert rec["latency_s"] > 0
 
 
 def test_generator_without_cuda_raises(corpus, monkeypatch):
