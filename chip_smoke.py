@@ -81,6 +81,10 @@ Phases, each of which exits non-zero on failure:
      self] under a boolean mask (its autograd backward alone for dq and
      dk/dv) as the yardstick, and dq and dk/dv bit-identical on a second
      launch;
+     then the decode-attention kernel against its twin at
+     tfm_cache.sample's cache shape (B = 2048, T = 609, nh = 2, hd = 128,
+     idx 544; bf16 and fp32), with F.scaled_dot_product_attention over the
+     cache in place as the yardstick, bit-identical on a second launch;
  11. training phase D, the episodic transformer with the full cache stack
      (scripts/scale_quality.py's tfm_cache_full leg: 2 layers, E=256,
      nh=2, mean_state, B=32) on the V=5000 corpus, as C: the attention
@@ -276,6 +280,16 @@ ATTN_HD = 128           # E = 256, nh = 2
 ATTN_FWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 ATTN_LSE_TOL = 1e-4
 ATTN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# the decode-attention kernel against its twin, absolute on outputs up to
+# about 5: fp32 only in summation order; bf16 p is rounded on both sides at
+# the same point, and where the order of the fp32 sums moves a score by its
+# last bit p's rounding can move one bf16 unit (2^-8 of p), times |v|
+DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# tfm_cache.sample's cache: B rows, a prefix of 5 songs x 96 slots, 128
+# decode positions + 1, nh = 2 heads of 128; idx at the mean decode
+# position (480 + 64)
+DECODE_SHAPE = {"b": 2048, "songs": 5, "slots": 96, "extra": 129, "nh": 2,
+                "hd": ATTN_HD, "idx": 544}
 EVAL_EPISODES = 512
 KERNEL_REPS, PLAIN_REPS = 20, 3
 YARD_TIMINGS = 3         # timings of each cuDNN yardstick (their spread)
@@ -1105,6 +1119,74 @@ def attn_kernel_phase(dev, shapes, hd=ATTN_HD, seed=2) -> dict:
     return records
 
 
+def decode_attn_phase(dev) -> dict:
+    """The decode-attention kernel (no TPU kernel: XLA's einsums in the
+    JAX package) against its twin at tfm_cache.sample's cache shape
+    (DECODE_SHAPE; songs of random real length, the rest of the prefix
+    pad; every decode position up to idx valid), bf16 and fp32: time, the
+    same bits on a second launch, the bound and the library yardstick.
+    Bound: the admitted keys' K and V (the kernel reads no other), q, the
+    flags up to idx and out, once; ops 4 hd a (row, head, key).  Library:
+    F.scaled_dot_product_attention over the cache slice in place (a
+    [B, nh, T, hd] view) under the boolean key mask, never called by the
+    port."""
+    import torch.nn.functional as F
+    from fewshot_torch.ops import decode_attention as da
+    sh = DECODE_SHAPE
+    b, nh, hd, idx = sh["b"], sh["nh"], sh["hd"], sh["idx"]
+    p = sh["songs"] * sh["slots"]
+    t = p + sh["extra"]
+    gen = torch.Generator().manual_seed(4)
+    lens = torch.randint(1, sh["slots"] + 1, (b, sh["songs"]), generator=gen)
+    valid = torch.zeros((b, t), dtype=torch.bool)
+    valid[:, :p] = (torch.arange(sh["slots"]) < lens[..., None]).reshape(b, p)
+    valid[:, p:idx + 1] = True
+    valid = valid.to(dev)
+    admitted = float(valid[:, :idx + 1].sum())
+    records = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn(shape, generator=gen).to(dev, dtype)
+                   for shape in ((b, 1, nh, hd), (b, t, nh, hd),
+                                 (b, t, nh, hd)))
+        size = k.element_size()
+        args = (q, k, v, valid, idx)
+        with torch.no_grad():
+            got = da.decode_attn(*args)
+            want = da.decode_attn_plain(*args)
+            torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        same = same_bits(lambda: (da.decode_attn(*args),))
+        ms = cuda_ms(lambda: da.decode_attn(*args), KERNEL_REPS)
+        plain_ms = cuda_ms(lambda: da.decode_attn_plain(*args), PLAIN_REPS,
+                           warmup=1)
+        kv_bytes = 2.0 * admitted * nh * hd * size
+        io_bytes = q.numel() * size + b * (idx + 1) + got.numel() * 4
+        bound_ms, bound_by = bound(kv_bytes + io_bytes,
+                                   4.0 * admitted * nh * hd, dtype)
+        every_ms = (2.0 * b * (idx + 1) * nh * hd * size + io_bytes) \
+            / PEAK_BYTES * 1e3
+        heads = [x.transpose(1, 2) for x in (q, k, v)]
+        with torch.no_grad():        # valid holds no key past idx here
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                *heads, attn_mask=valid[:, None, None, :]), KERNEL_REPS)
+        rec = {"name": "decode_attn", "dtype": str(dtype).replace(
+                   "torch.", ""), "shape": [b, t, nh, hd], "idx": idx,
+               "admitted_share": admitted / (b * (idx + 1)),
+               "max_abs_err": err, "tolerance": DECODE_TOL[dtype],
+               "parity": err <= DECODE_TOL[dtype], "deterministic": same,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "roofline_share": bound_ms / ms,
+               "bound_every_position_ms": every_ms, "library_ms": lib_ms,
+               "achieved_gb_per_s": (kv_bytes + io_bytes) / ms / 1e6}
+        log(f"  decode_attn {json.dumps(rec)}")
+        if not (rec["parity"] and same
+                and bool(torch.isfinite(got).all())):
+            raise RuntimeError(f"decode_attn {dtype}: {rec}")
+        records[("decode_attn", dtype)] = rec
+        del q, k, v, args, heads
+    return records
+
+
 # ---------------------------------------------------------------------------
 # the width repairs: kernels 1-2 past their former shared-memory limits,
 # kernels 7-9 at any head width
@@ -1457,8 +1539,8 @@ def serving_phase(label, cfg, corpus, dev, counter, persistent=(),
 
 def counters() -> dict:
     """Every kernel wrapper by name; each counts its launches."""
-    from fewshot_torch.ops import (head_ce, lstm_layer, lstm_stack,
-                                   prefix_attention)
+    from fewshot_torch.ops import (decode_attention, head_ce, lstm_layer,
+                                   lstm_stack, prefix_attention)
     return {"lstm_layer_fwd": lstm_layer.lstm_layer_fwd,
             "lstm_layer_bwd": lstm_layer.lstm_layer_bwd,
             "lstm_stack_fwd": lstm_stack.lstm_stack_fwd,
@@ -1467,7 +1549,8 @@ def counters() -> dict:
             "head_ce_bwd": head_ce.head_ce_bwd,
             "prefix_attn_fwd": prefix_attention.prefix_attn_fwd,
             "prefix_attn_bwd_dq": prefix_attention.prefix_attn_bwd_dq,
-            "prefix_attn_bwd_dkv": prefix_attention.prefix_attn_bwd_dkv}
+            "prefix_attn_bwd_dkv": prefix_attention.prefix_attn_bwd_dkv,
+            "decode_attn": decode_attention.decode_attn}
 
 
 def reset_counts() -> dict:
@@ -2938,6 +3021,8 @@ def main() -> int:
                    "prefix": (32, 1, 5 * scale.max_len, 0)}
     log(f"prefix-attention kernels vs plain twins {attn_shapes}:")
     records.update(attn_kernel_phase(dev, attn_shapes))
+    log(f"decode attention vs its plain twin {DECODE_SHAPE}:")
+    records.update(decode_attn_phase(dev))
     # scripts/scale_quality.py:58-70, 205-206, 234 (tfm_cache_full)
     tfm_d = dataclasses.replace(
         cache, model="transformer", num_heads=2, cache_resp_floor=0.0)
@@ -3263,6 +3348,21 @@ def main() -> int:
                               ("float32", torch.float32))}
         kernels.append(rec)
     kernels[-3]["flash_route"] = flash
+    d, f = (records[("decode_attn", x)] for x in (torch.bfloat16,
+                                                    torch.float32))
+    kernels.append({
+        "name": "decode_attn", "route": "cuda",
+        "source": "fewshot_torch/ops/csrc/decode_attn.cu",
+        "replaces": None, **{k: d[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "roofline_share", "bound_every_position_ms", "library_ms",
+            "dtype", "shape", "idx", "admitted_share", "deterministic")},
+        "parity": d["parity"] and f["parity"],
+        "fp32": {k: f[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "library_ms")},
+        "launches_serving": serve_c["launches"]["decode_attn"],
+        "launches_per_serving_batch":
+            serve_c["launches_per_batch"]["decode_attn"]})
     log(f"harness leg: {json.dumps(harness)}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card, flush=True)

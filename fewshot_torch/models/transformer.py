@@ -7,7 +7,9 @@ support songs form an attention PREFIX whose per-layer states are computed
 once per episode, and each of the Q query songs attends to (prefix ++
 itself) through the prefix-attention kernels (``ops/prefix_attention.py``).
 Sampling decodes with a static KV cache (``init_kv_cache``, ``prefill``,
-``transformer_step``).
+``transformer_step``); a decode step's attention reads the cache in place
+through the decode-attention kernel (``ops/decode_attention.py``), which
+the JAX package leaves to XLA's einsums.
 
 Every matmul that the JAX code runs at the compute dtype with fp32
 accumulation goes through ``models.lstm.matmul_f32``; rounding points are
@@ -33,9 +35,10 @@ from torch.utils.checkpoint import checkpoint
 
 from fewshot_torch.models.lstm import matmul_f32
 from fewshot_torch.ops.attention import causal_attention
-from fewshot_torch.ops.prefix_attention import (NEG,
-                                                causal_self_attention_flash,
+from fewshot_torch.ops.decode_attention import decode_attn
+from fewshot_torch.ops.prefix_attention import (causal_self_attention_flash,
                                                 episodic_attention)
+from fewshot_torch.utils.metrics import span
 
 
 def _dt(cfg) -> torch.dtype:
@@ -108,16 +111,6 @@ def _qkv(layer, x, positions, cfg):
     q = rope(q.reshape(b, t, nh, hd), positions)
     k = rope(k.reshape(b, t, nh, hd), positions)
     return q, k, v.reshape(b, t, nh, hd)
-
-
-def _attend(q, k, v, bias):
-    """q [B,Tq,nh,hd], k/v [B,Tk,nh,hd], bias [B,1,Tq,Tk] -> [B,Tq,E]."""
-    b, tq, nh, hd = q.shape
-    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
-    scores = scores / math.sqrt(hd) + bias
-    probs = torch.softmax(scores, dim=-1).to(v.dtype).float()
-    out = torch.einsum("bhqk,bkhd->bqhd", probs, v.float())
-    return out.reshape(b, tq, nh * hd)
 
 
 def _mlp(layer, x, cfg):
@@ -247,18 +240,19 @@ def transformer_step(params: Transformer, x_t: torch.Tensor, cache: dict,
                      idx: int, cfg) -> tuple[torch.Tensor, dict]:
     """One decode step.  x_t [B, E] at position idx; returns (hidden [B,
     E], cache), the cache updated in place.  The cache holds K/V for
-    positions < idx; ``valid`` masks its pad slots."""
+    positions < idx; ``valid`` masks its pad slots.  Each layer's attention
+    is the decode-attention kernel over the cache in place (its twin on the
+    CPU), inside a ``sample.attend`` span."""
     b, _ = x_t.shape
     h = x_t[:, None].to(_dt(cfg))                         # [B, 1, E]
     pos = torch.full((b, 1), idx, device=x_t.device)
     valid = cache["valid"]
     valid[:, idx] = True
-    key_ok = valid & (torch.arange(valid.shape[1], device=x_t.device) <= idx)
-    bias = torch.where(key_ok, 0.0, NEG)[:, None, None, :]
     for li, layer in enumerate(params.layers):
         q, k, v = _qkv(layer, h, pos, cfg)
         cache["k"][li, :, idx] = k[:, 0]
         cache["v"][li, :, idx] = v[:, 0]
-        attn = _attend(q, cache["k"][li], cache["v"][li], bias)
+        with span("sample.attend"):
+            attn = decode_attn(q, cache["k"][li], cache["v"][li], valid, idx)
         h = _block_out(layer, h, attn, cfg)
     return rmsnorm(h, params.ln_f)[:, 0], cache

@@ -65,6 +65,10 @@ SIGNATURES = {
         "prefix_attn_bwd_dq": [_P] * 11 + [_I] * 6 + [_F, _I, _P],
         "prefix_attn_bwd_dkv": [_P] * 14 + [_I] * 6 + [_F, _I, _P],
     },
+    "decode_attn": {
+        "decode_attn": [_P] * 5 + [_I] * 5 + [_F, _I, _P],
+        "decode_attn_smem": [_I] * 3,
+    },
 }
 
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' dtype arg

@@ -1,9 +1,10 @@
 """The program's profiler spans (``fewshot_torch.utils.metrics.span``) on
 the CPU with tiny models: off, a span is one shared null context; under a
 profiler, the train step and the sampler record their phases as nested,
-disjoint ranges, one ``sample.decode_step`` a step the loop ran and one
-``sample.sync`` an early-exit test; and the profiler changes no token,
-loss or parameter."""
+disjoint ranges, one ``sample.decode_step`` a step the loop ran, one
+``sample.sync`` an early-exit test and, in the transformer's steps, one
+``sample.attend`` a layer; and the profiler changes no token, loss or
+parameter."""
 
 import contextlib
 
@@ -187,6 +188,25 @@ def test_generate_spans(model, eos_bias):
         assert e.cpu_parent.name == "sample.decode"
     assert _disjoint_in_order(sorted(
         got_steps + got_tests, key=lambda e: e.time_range.start))
+    _check_attend_spans(events, model, _cfg(model).num_layers, steps)
+
+
+def _check_attend_spans(events, model, layers, steps):
+    """The transformer's decode attention: one sample.attend a layer a
+    decode step, each inside a sample.decode_step; none in the LSTM's."""
+    attend = _named(events, "sample.attend")
+    assert len(attend) == (layers * steps if model == "transformer" else 0)
+    assert all(e.cpu_parent.name == "sample.decode_step" for e in attend)
+    for step in _named(events, "sample.decode_step"):
+        kids = _span_children(step, ["sample.attend"])
+        assert len(kids) == (layers if model == "transformer" else 0)
+        assert _disjoint_in_order(kids)
+
+
+def test_decode_attention_spans_one_per_layer_a_step():
+    toks, events = _generate("transformer", True, num_layers=2)
+    steps, _ = _steps_and_tests(toks)
+    _check_attend_spans(events, "transformer", 2, steps)
 
 
 def test_no_early_exit_runs_every_step_and_no_test():
