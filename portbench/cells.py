@@ -4,6 +4,9 @@ metrics, each in a file of its own under ``portbench/``.
   BENCHMARK.json              the cells and the metrics, by name
   configs/<config>.json       the model's sizes and recipe ("program"),
                               its source, reductions and the corpus recipe
+  backbones/<model>.py        the configuration's "model": its weight
+  reference/backbones/<model>.py  leaves, the program's objects and FLOPs;
+                              the reference's hidden states
   traffic/<traffic>.json      the mix: its "kind" names the generator in
                               kinds/<kind>.py, the rest are its parameters
   limits/<workload>.json      the limit of each number compared
@@ -12,8 +15,10 @@ metrics, each in a file of its own under ``portbench/``.
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
+import re
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -67,3 +72,27 @@ def reader(metric: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def _module(package: str, name: str, files: list):
+    """portbench.<package>.<name>, where every file of `files` (paths
+    under portbench/ that the name needs) is there."""
+    if not (re.fullmatch(r"[A-Za-z_][A-Za-z0-9_]*", name)
+            and all((HERE / f).is_file() for f in files)):
+        raise ValueError(f"no module for {name!r}: it needs "
+                         + " and ".join(f"portbench/{f}" for f in files))
+    return importlib.import_module(f"portbench.{package}.{name}")
+
+
+def backbone(model: str, reference: bool = False):
+    """The module of a configuration's "model": backbones/<model>.py, the
+    program's side, or with `reference` reference/backbones/<model>.py.
+    Each side needs the other."""
+    files = [f"backbones/{model}.py", f"reference/backbones/{model}.py"]
+    return _module("reference.backbones" if reference else "backbones",
+                   model, files)
+
+
+def kind(name: str):
+    """The module of a traffic mix's "kind": kinds/<name>.py."""
+    return _module("kinds", name, [f"kinds/{name}.py"])

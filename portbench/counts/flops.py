@@ -1,14 +1,16 @@
 """Model FLOPs: the products a step or a sampling call needs, from the
 shapes (every position a backbone runs over) and, for attention, the real
 (query, key) pairs; the backward is twice the forward, with nothing
-recomputed."""
+recomputed.  The backbone's part comes from its module
+(backbones/<model>.py, ``train_flops`` and ``sample_flops``), which builds
+on the per-position counts below; the head's part is added here."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from portbench.counts.attention import decode_pairs, prefix_pairs, \
-    query_pairs
+from portbench import cells
+from portbench.counts.attention import prefix_pairs
 
 
 def lstm_token(spec: dict) -> int:
@@ -31,11 +33,11 @@ def kv_token(spec: dict) -> int:
 
 def head_token(spec: dict, vocab: int) -> int:
     e = spec["embed_dim"]
-    d = spec["hidden_dim"] if spec["model"] == "lstm" else e
+    d = cells.backbone(spec["model"]).width(spec)
     return 2 * (d * e if d != e else 0) + 2 * e * vocab
 
 
-def _prefix(spec: dict, support_len: np.ndarray) -> int:
+def prefix_flops(spec: dict, support_len: np.ndarray) -> int:
     """The transformer's prefix: full blocks below the last layer, the last
     layer's keys and values, causal attention below the last layer."""
     rows, k = support_len.shape
@@ -48,16 +50,11 @@ def _prefix(spec: dict, support_len: np.ndarray) -> int:
 def train_step(spec: dict, vocab: int, support_len: np.ndarray,
                query_len: np.ndarray) -> int:
     """Forward + backward of one step over episodes with these lengths."""
-    b, k = support_len.shape
+    b = support_len.shape[0]
     q, l = query_len.shape[1], spec["max_len"]
     rows_q = b * q * (l - 1)
-    if spec["model"] == "lstm":
-        fwd = (b * k * l + rows_q) * lstm_token(spec)
-    else:
-        fwd = (_prefix(spec, support_len)
-               + rows_q * spec["num_layers"] * block_token(spec)
-               + spec["num_layers"] * 4 * spec["embed_dim"]
-               * query_pairs(support_len, query_len))
+    fwd = cells.backbone(spec["model"]).train_flops(spec, support_len,
+                                                    query_len)
     return 3 * (fwd + rows_q * head_token(spec, vocab))
 
 
@@ -65,14 +62,7 @@ def sample_call(spec: dict, vocab: int, support_len: np.ndarray,
                 tokens: np.ndarray) -> int:
     """Forward of one sampling call: rows with support_len [R, K] whose
     returned token counts are tokens [R]."""
-    rows, k = support_len.shape
     n = int(tokens.sum())
-    if spec["model"] == "lstm":
-        prime = rows * k * spec["max_len"] * lstm_token(spec)
-        per = n * lstm_token(spec)
-    else:
-        prime = _prefix(spec, support_len)
-        per = (n * spec["num_layers"] * block_token(spec)
-               + spec["num_layers"] * 4 * spec["embed_dim"]
-               * decode_pairs(support_len, tokens))
-    return prime + per + n * head_token(spec, vocab)
+    fwd = cells.backbone(spec["model"]).sample_flops(spec, support_len,
+                                                     tokens)
+    return fwd + n * head_token(spec, vocab)

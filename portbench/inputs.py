@@ -11,10 +11,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from portbench.cells import HERE
+from portbench import cells
 from portbench.reference.model import CALIB_MAX, EOS
 
-CORPUS_ROOT = HERE / "data"
+CORPUS_ROOT = cells.HERE / "data"
 
 
 def sub_seeds(seed: int, n: int) -> list[int]:
@@ -49,7 +49,7 @@ def corpus(recipe: dict, root: Path = CORPUS_ROOT):
     return PackedCorpus.load(out)
 
 
-def _glorot(fan_in: int, fan_out: int) -> float:
+def glorot(fan_in: int, fan_out: int) -> float:
     return math.sqrt(6.0 / (fan_in + fan_out))
 
 
@@ -64,34 +64,16 @@ def leaves(spec: dict, vocab: int) -> list:
     in the recipe, get a spread around their starting values so that every
     path of the mixture carries weight from the first step.  "gain" in
     "init" scales the leaves of a name (``w2``: every block's) after the
-    draw."""
+    draw.  The backbone's leaves (backbones/<model>.py) lie between the
+    embedding and ``out_b``."""
     e = spec["embed_dim"]
+    backbone = cells.backbone(spec["model"])
     out = [("embed", (vocab, e), "n", spec["init"]["embed_std"], 0.0)]
-    if spec["model"] == "lstm":
-        h = spec["hidden_dim"]
-        ins = e
-        for li in range(spec["num_layers"]):
-            lim = _glorot(ins + h, 4 * h)
-            out += [(f"lstm.{li}.wx", (ins, 4 * h), "u", lim, 0.0),
-                    (f"lstm.{li}.wh", (h, 4 * h), "u", lim, 0.0),
-                    (f"lstm.{li}.b", (4 * h,), "n", 0.0, 0.0)]
-            ins = h
-        d = h
-    else:
-        f = e * spec["mlp_ratio"]
-        for li in range(spec["num_layers"]):
-            p = f"transformer.layers.{li}."
-            out += [(p + "ln1", (e,), "n", 0.1, 1.0),
-                    (p + "wqkv", (e, 3 * e), "u", _glorot(e, 3 * e), 0.0),
-                    (p + "wo", (e, e), "u", _glorot(e, e), 0.0),
-                    (p + "ln2", (e,), "n", 0.1, 1.0),
-                    (p + "w1", (e, f), "u", _glorot(e, f), 0.0),
-                    (p + "w2", (f, e), "u", _glorot(f, e), 0.0)]
-        out.append(("transformer.ln_f", (e,), "n", 0.1, 1.0))
-        d = e
+    out += backbone.leaves(spec)
+    d = backbone.width(spec)
     out.append(("out_b", (vocab,), "n", 0.1, 0.0))
     if d != e:
-        out.append(("out_proj", (d, e), "u", _glorot(d, e), 0.0))
+        out.append(("out_proj", (d, e), "u", glorot(d, e), 0.0))
     out += [("cache_gate.w", (d,), "n", 1.0 / math.sqrt(d), 0.0),
             ("cache_gate.b", (), "n", 0.2, spec["init"]["gate_b"]),
             ("cache_prior.u", (vocab,), "n", 0.5, 0.0),

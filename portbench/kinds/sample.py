@@ -25,6 +25,11 @@ from portbench.reference import check, episodes as ref_eps, model as ref
 # a call's seed and each row's generator seed from the run's sub-seed
 CALL_STRIDE, ROW_STRIDE = 7919, 1_000_003
 
+# the CPU tests' tiny mix, and the on-card control test's fewer rows
+TINY = {"jobs": 4, "continuations": 2, "tokens": 12, "check_rows": 8,
+        "trace_calls": 1}
+SMALL = {"jobs": 4, "continuations": 8, "check_rows": 8}
+
 
 class Run:
     def __init__(self, cell, seed: int, device, corpus_root):
@@ -39,7 +44,7 @@ class Run:
                                      dtype=torch.int64, device=self.device)
         w = inputs.weights(cell.config, self.vocab, s_w, self.device)
         self.w0 = program.clone(w)
-        self.params = program.model(self.cfg, w)
+        self.params = program.model(cell.config, self.cfg, w)
         t = cell.traffic
         self.jobs, self.cont = int(t["jobs"]), int(t["continuations"])
         self.tokens = int(t["tokens"])
@@ -208,4 +213,23 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
                                 if r.device.type == "cuda" else 0)
     r.release()
     out["numbers"] = r.numbers()
+    return out
+
+
+def readings(cell, seed: int, control: bool, device, corpus_root,
+             calls: int = 2) -> dict:
+    """The numbers of one seed for ``portbench.prove``, over `calls` calls
+    at the cell's load: "program", and with control also "control" and
+    the faults "no_cache" and "static_cache"."""
+    r = Run(cell, seed, device, corpus_root)
+    for i in range(calls):
+        r.keep(*r.call(i))
+    r.release()
+    nums = r.numbers(control=control)
+    out = {"program": {k: nums[k] for k in ("served_gap", "rows", "tokens",
+                                            "returned_share")}}
+    if control:
+        out["control"] = {"served_gap": nums["control_gap"]}
+        out["no_cache"] = {"served_gap": nums["no_cache_gap"]}
+        out["static_cache"] = {"served_gap": nums["static_cache_gap"]}
     return out

@@ -25,6 +25,10 @@ from portbench.reference import check, episodes as ref_eps, model as ref
 
 B1 = 0.9    # Adam's first-moment decay: mu after one step is (1 - B1) g
 
+# the CPU tests' tiny mix, and the on-card control test's (the cell's own)
+TINY = {"steps_per_call": 2, "check_steps": 3, "trace_calls": 1}
+SMALL: dict = {}
+
 
 class Run:
     def __init__(self, cell, seed: int, device, corpus_root):
@@ -42,7 +46,7 @@ class Run:
                                      dtype=torch.int64, device=self.device)
         w = inputs.weights(cell.config, self.vocab, s_w, self.device)
         self.w0 = program.clone(w)
-        params = program.model(self.cfg, w)
+        params = program.model(cell.config, self.cfg, w)
         opt = training.make_optimizer(self.cfg)
         gen = torch.Generator(device=self.device).manual_seed(s_gen)
         self.state = training.TrainState(params, opt.init(params), 0, gen)
@@ -169,4 +173,22 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
                                 if r.device.type == "cuda" else 0)
     r.release()
     out["numbers"] = check.train_numbers(prog, r.reference())
+    return out
+
+
+def readings(cell, seed: int, control: bool, device, corpus_root,
+             calls: int = 2) -> dict:
+    """The numbers of one seed for ``portbench.prove``: "program", and
+    with control also "control" and the fault "half_batch".  No window:
+    set-up and the first steps, as a run makes them (calls is unused)."""
+    r = Run(cell, seed, device, corpus_root)
+    prog = r.first_steps()
+    program.synchronize(r.device)
+    r.release()
+    want = r.reference()
+    out = {"program": check.train_numbers(prog, want)}
+    if control:
+        out["control"] = check.train_numbers(r.reference(ref.fp8), want)
+        out["half_batch"] = check.train_numbers(
+            r.reference(batch=r.batch // 2), want)
     return out

@@ -7,44 +7,36 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch import nn
+
+from portbench import cells
 
 
 def config(spec: dict, vocab: int, max_len: int):
     """The program's Config from configs/<name>.json's "program" block,
-    with the corpus's vocabulary and song length."""
+    with the corpus's vocabulary and song length; its ``model`` is the one
+    that runs the backbone that the configuration names."""
     from fewshot_torch.config import Config
     fields = {f.name for f in dataclasses.fields(Config)}
     over = {k: v for k, v in spec.items() if k in fields}
-    over.update(vocab_size=vocab, max_len=max_len, data_parallel=False)
+    over.update(model=cells.backbone(spec["model"]).MODEL, vocab_size=vocab,
+                max_len=max_len, data_parallel=False)
     return Config(**over)
 
 
-def model(cfg, w: dict):
+def model(spec: dict, cfg, w: dict):
     """The program's LM holding the tensors of w (they become its
-    parameters and are updated in place); its parameter names must be
-    w's, shape for shape."""
+    parameters and are updated in place), its backbone built by
+    backbones/<spec's model>.py; its parameter names must be w's, shape
+    for shape."""
     from fewshot_torch.models import lm as lm_mod
-    from fewshot_torch.models import lstm as lstm_mod
-    from fewshot_torch.models import transformer as tfm_mod
-    lstm = tfm = None
-    if cfg.model == "lstm":
-        lstm = nn.ModuleList([
-            lstm_mod.LSTMLayer(*(w[f"lstm.{i}.{k}"] for k in ("wx", "wh", "b")))
-            for i in range(cfg.num_layers)])
-    else:
-        names = ("ln1", "wqkv", "wo", "ln2", "w1", "w2")
-        tfm = tfm_mod.Transformer(nn.ModuleList([
-            tfm_mod.TransformerLayer(*(w[f"transformer.layers.{i}.{k}"]
-                                       for k in names))
-            for i in range(cfg.num_layers)]), w["transformer.ln_f"])
+    backbone = cells.backbone(spec["model"]).build(cfg, w)
     groups: dict = {}
     for name, value in w.items():
         if name.startswith("cache_"):
             group, leaf = name.split(".", 1)
             groups.setdefault(group, {})[leaf] = value
-    lm = lm_mod.LM(w["embed"], lstm, w["out_b"], out_proj=w.get("out_proj"),
-                   transformer=tfm, **groups)
+    lm = lm_mod.LM(embed=w["embed"], out_b=w["out_b"],
+                   out_proj=w.get("out_proj"), **backbone, **groups)
     got = {k: tuple(v.shape) for k, v in lm.named_parameters()}
     want = {k: tuple(v.shape) for k, v in w.items()}
     if got != want:

@@ -20,40 +20,17 @@ import sys
 import time
 from pathlib import Path
 
+RUN_KEYS = {"program", "control", "seed", "seconds"}   # the rest: faults
+
 
 def readings(cell, seed: int, control: bool, device, corpus_root,
              calls: int = 2) -> dict:
-    """The numbers of one seed: "program", and with control also
-    "control" (and "half_batch" for training)."""
-    from portbench import program
-    from portbench.reference import check, model as ref
-    kind = cell.traffic["kind"]
-    if kind == "train":
-        from portbench.kinds.train import Run
-        r = Run(cell, seed, device, corpus_root)
-        prog = r.first_steps()
-        program.synchronize(r.device)
-        r.release()
-        want = r.reference()
-        out = {"program": check.train_numbers(prog, want)}
-        if control:
-            out["control"] = check.train_numbers(r.reference(ref.fp8), want)
-            out["half_batch"] = check.train_numbers(
-                r.reference(batch=r.batch // 2), want)
-        return out
-    from portbench.kinds.sample import Run
-    r = Run(cell, seed, device, corpus_root)
-    for i in range(calls):
-        r.keep(*r.call(i))
-    r.release()
-    nums = r.numbers(control=control)
-    out = {"program": {k: nums[k] for k in ("served_gap", "rows", "tokens",
-                                            "returned_share")}}
-    if control:
-        out["control"] = {"served_gap": nums["control_gap"]}
-        out["no_cache"] = {"served_gap": nums["no_cache_gap"]}
-        out["static_cache"] = {"served_gap": nums["static_cache_gap"]}
-    return out
+    """The numbers of one seed, by the ``readings`` of the cell's kind
+    (kinds/<kind>.py): "program", and with control also "control" and the
+    kind's faults."""
+    from portbench import cells
+    return cells.kind(cell.traffic["kind"]).readings(
+        cell, seed, control, device, corpus_root, calls)
 
 
 def summary(runs: list, limits: dict) -> dict:
@@ -67,8 +44,8 @@ def summary(runs: list, limits: dict) -> dict:
         ctl = [r["control"][name] for r in runs if "control" in r]
         out[name] = {"program_max": max(prog), "control_min":
                      min(ctl) if ctl else None, "limit": limits.get(name)}
-        for fault in ("half_batch", "no_cache", "static_cache"):
-            got = [r[fault][name] for r in runs if fault in r]
+        for fault in sorted({k for r in runs for k in r} - RUN_KEYS):
+            got = [r[fault][name] for r in runs if name in r.get(fault, {})]
             if got:
                 out[name][fault + "_min"] = min(got)
     return out

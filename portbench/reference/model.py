@@ -10,7 +10,9 @@ per-count calibration, a learned global backoff, the continuous cache of
 the row's own earlier tokens, a hidden-gated mixture, the
 responsibility floor in training).  Parameters are a dict of fp32
 tensors under the program's parameter names, so the two sides compare
-leaf by leaf.
+leaf by leaf.  The backbone that a configuration's "model" names gives
+the hidden states (reference/backbones/<model>.py, on the parts below);
+this module adds the head and the cache.
 
 ``rnd`` is applied to every operand of a product that the configuration
 runs at its compute dtype: ``exact`` for the reference, ``fp8`` for the
@@ -24,6 +26,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from portbench.cells import backbone
 
 FORGET_BIAS = 1.0
 CALIB_MAX = 32
@@ -68,7 +72,7 @@ def mm(a: torch.Tensor, b: torch.Tensor, rnd) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# backbones
+# the backbones' parts (reference/backbones/<model>.py builds on these)
 # ---------------------------------------------------------------------------
 
 def lstm_layers(p: dict) -> int:
@@ -198,35 +202,6 @@ def cache_parts(p: dict, counts: torch.Tensor):
 # training loss
 # ---------------------------------------------------------------------------
 
-def _episode_hidden(p: dict, model: str, heads: int, support, support_len,
-                    inputs, in_mask, rnd) -> torch.Tensor:
-    """Hidden [B*Q, L-1, D] of the query inputs [B, Q, L-1] conditioned on
-    the support songs [B, K, L]."""
-    b, k, l = support.shape
-    q_ = inputs.shape[1]
-    emb = p["embed"]
-    if model == "lstm":
-        steps = torch.arange(l, device=support.device)
-        flat = support.reshape(b * k, l)
-        smask = steps < support_len.reshape(b * k)[:, None]
-        _, st = lstm_run(p, emb[flat], smask, None, rnd)
-        st = [(h.reshape(b, k, -1).mean(1).repeat_interleave(q_, 0),
-               c.reshape(b, k, -1).mean(1).repeat_interleave(q_, 0))
-              for h, c in st]
-        hid, _ = lstm_run(p, emb[inputs.reshape(b * q_, -1)],
-                          in_mask.reshape(b * q_, -1), st, rnd)
-        return hid
-    prefix = support.reshape(b, k * l)
-    pmask = (torch.arange(l, device=support.device)
-             < support_len[..., None]).reshape(b, k * l)
-    seq = torch.cat([prefix.repeat_interleave(q_, 0),
-                     inputs.reshape(b * q_, -1)], dim=1)
-    valid = torch.cat([pmask.repeat_interleave(q_, 0),
-                       in_mask.reshape(b * q_, -1)], dim=1)
-    hid = tfm_run(p, emb[seq], valid, heads, rnd)
-    return hid[:, k * l:]
-
-
 def episode_loss(p: dict, spec: dict, ep: dict, rnd=exact, train=True):
     """(sum of the query tokens' mixture NLL, token count) of a batch of
     episodes ep = {support, support_len, query, query_len} (int64)."""
@@ -236,8 +211,8 @@ def episode_loss(p: dict, spec: dict, ep: dict, rnd=exact, train=True):
     vocab = p["embed"].shape[0]
     inputs, targets = query[..., :-1], query[..., 1:]
     mask = torch.arange(l - 1, device=query.device) < (qlen[..., None] - 1)
-    hid = _episode_hidden(p, spec["model"], spec.get("num_heads", 0),
-                          support, slen, inputs, mask, rnd)
+    hid = backbone(spec["model"], reference=True).episode_hidden(
+        p, spec, support, slen, inputs, mask, rnd)
     rows, t = b * q_, l - 1
     hid = hid.reshape(rows, t, -1)
     tg = targets.reshape(rows, t)
@@ -311,26 +286,12 @@ def served_logp(p: dict, spec: dict, support, support_len, tokens,
     (the LM branch alone) and dynamic=False (the support's counts alone)
     are faults, for reading what the comparison sees of them."""
     r, n = tokens.shape
-    k, l = support.shape[1:]
     vocab = p["embed"].shape[0]
     dev = tokens.device
     inputs = torch.cat([torch.full((r, 1), BOS, dtype=torch.long,
                                    device=dev), tokens[:, :-1]], dim=1)
-    emb = p["embed"]
-    if spec["model"] == "lstm":
-        steps = torch.arange(l, device=dev)
-        smask = steps < support_len.reshape(r * k)[:, None]
-        _, st = lstm_run(p, emb[support.reshape(r * k, l)], smask, None, rnd)
-        st = [(h.reshape(r, k, -1).mean(1), c.reshape(r, k, -1).mean(1))
-              for h, c in st]
-        hid, _ = lstm_run(p, emb[inputs], None, st, rnd)
-    else:
-        pmask = (torch.arange(l, device=dev)
-                 < support_len[..., None]).reshape(r, k * l)
-        seq = torch.cat([support.reshape(r, k * l), inputs], dim=1)
-        valid = torch.cat([pmask, torch.ones(r, n, dtype=torch.bool,
-                                             device=dev)], dim=1)
-        hid = tfm_run(p, emb[seq], valid, spec["num_heads"], rnd)[:, k * l:]
+    hid = backbone(spec["model"], reference=True).served_hidden(
+        p, spec, support, support_len, inputs, rnd)
     logits = head_logits(p, hid.reshape(r * n, -1), rnd).reshape(r, n, vocab)
     logp = torch.log_softmax(logits, dim=-1)
     phi, total, s, pg = cache_parts(p, support_counts(support, support_len,

@@ -24,7 +24,6 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
 import subprocess  # noqa: E402
@@ -91,7 +90,7 @@ def main(argv=None, device=None, corpus_root=None, shrink=None,
                   f"card(s); this machine has {have}", file=sys.stderr)
             return 2
         device = "cuda:0"
-    kind = importlib.import_module(f"portbench.kinds.{cell.traffic['kind']}")
+    kind = cells.kind(cell.traffic["kind"])
     out = kind.run(cell, args.seed, args.seconds, bool(args.trace), device,
                    corpus_root or inputs.CORPUS_ROOT, t_start)
     correct, checks = judge(out["numbers"], cell.limits)

@@ -14,26 +14,10 @@ ROOT = Path(__file__).resolve().parents[2]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
 
+# every cell runs on this corpus, at its backbone's TINY sizes
+# (backbones/<model>.py) and its kind's TINY mix (kinds/<kind>.py)
 TINY_CORPUS = {"name": "tiny", "artists": 12, "songs": 12, "extra_vocab": 0,
                "vocab_size": 5000, "max_len": 24, "seed": 0}
-# the recurrence kernels' route takes H % 128 == 0; the heads stay 2; the
-# tiny LSTM's head is narrower, so its embedding spreads wider for its
-# greedy rows to follow the backbone (as the cell's do at full width); at
-# the tiny sizes the cache gates open wider, for the cache branch to weigh
-# in the greedy rows as much as it does at full width
-TINY_CONFIG = {
-    "lstm": {"embed_dim": 16, "hidden_dim": 128, "batch_size": 4,
-             "support_size": 2, "query_size": 2, "corpus": TINY_CORPUS,
-             "init": {"gate_b": 0.0, "embed_std": 3.0}},
-    "transformer": {"embed_dim": 32, "num_layers": 2, "batch_size": 4,
-                    "support_size": 2, "query_size": 2,
-                    "corpus": TINY_CORPUS,
-                    "init": {"gate_b": -2.0, "embed_std": 0.1, "eos_b": -30.0,
-                             "gain": {"w2": 3.0, "wqkv": 2.0}}}}
-TINY_TRAFFIC = {
-    "train": {"steps_per_call": 2, "check_steps": 3, "trace_calls": 1},
-    "sample": {"jobs": 4, "continuations": 2, "tokens": 12, "check_rows": 8,
-               "trace_calls": 1}}
 
 
 def workloads() -> list:
@@ -44,8 +28,9 @@ def workloads() -> list:
 def shrink(workload: str, **config) -> dict:
     from portbench import cells
     cell = cells.load(workload)
-    return {"config": dict(TINY_CONFIG[cell.config["model"]], **config),
-            "traffic": TINY_TRAFFIC[cell.traffic["kind"]]}
+    tiny = cells.backbone(cell.config["model"]).TINY
+    return {"config": dict(tiny, corpus=TINY_CORPUS, **config),
+            "traffic": cells.kind(cell.traffic["kind"]).TINY}
 
 
 @pytest.fixture(scope="session")

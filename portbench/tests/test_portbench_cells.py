@@ -43,7 +43,9 @@ def test_cells_name_their_files():
     from portbench import cells
     for w in workloads():
         cell = cells.load(w)
-        assert cell.limits and cell.traffic["kind"] in ("train", "sample")
+        kind = cells.kind(cell.traffic["kind"])
+        assert cell.limits and callable(kind.run) and \
+            callable(kind.readings) and isinstance(kind.TINY, dict)
         for m in cell.per_layer:
             assert callable(cells.reader(m["name"]))
 

@@ -19,10 +19,10 @@ def test_forbidden_names_whole_top_level_modules():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    """The reference and the comparisons name no module of the program
-    or of the JAX package."""
+    """The reference, its backbones and the comparisons name no module of
+    the program or of the JAX package."""
     for path in sorted((Path(portbench.__file__).parent / "reference")
-                       .glob("*.py")):
+                       .rglob("*.py")):
         src = path.read_text()
         assert not re.search(r"^\s*(import|from)\s+(fewshot|jax|flax)",
                              src, re.M), path
