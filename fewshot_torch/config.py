@@ -28,7 +28,7 @@ class Config:
     max_len: int = 256               # per-song token budget (pad/truncate)
 
     # ---- model (configs/model/*.yaml) ----
-    model: str = "lstm"              # lstm | transformer
+    model: str = "lstm"              # lstm | transformer | moonlight
     embed_dim: int = 256
     hidden_dim: int = 512
     num_layers: int = 1
@@ -86,7 +86,7 @@ class Config:
 
     _CHOICES = {
         "dataset": ("lyrics", "midi"),
-        "model": ("lstm", "transformer"),
+        "model": ("lstm", "transformer", "moonlight"),
         "support_mode": ("none", "state", "mean_state", "finetune"),
         "cache_backoff": ("global", "uniform"),
         "cell": ("scan", "pallas"),

@@ -39,6 +39,7 @@ from torch.func import functional_call, grad, vmap
 
 from fewshot_torch.device import resolve_device
 from fewshot_torch.models import lstm as lstm_mod
+from fewshot_torch.models import moonlight as moon_mod
 from fewshot_torch.models import transformer as tfm_mod
 from fewshot_torch.models.lstm import matmul_f32
 from fewshot_torch.ops import head_ce
@@ -67,7 +68,8 @@ class LM(nn.Module):
 
     embed [V, E]; the backbone: lstm[l].{wx [in, 4H], wh [H, 4H], b [4H]}
     or transformer.{layers[l].{ln1, wqkv, wo, ln2, w1, w2}, ln_f}
-    (``models/transformer.py``); out_proj [D, E] (tied head with D != E) or
+    (``models/transformer.py``) or moonlight.{layers[l], ln_f}
+    (``models/moonlight.py``); out_proj [D, E] (tied head with D != E) or
     out_w [D, V] (untied head), D = H or E; out_b [V]; with the cache head,
     cache_gate.{w [D], b []}, cache_prior.{u [V], log_s []} (global
     backoff) and cache_calib.{t [32], a [32]} (calib; ``a`` with
@@ -79,11 +81,13 @@ class LM(nn.Module):
                  cache_gate: dict | None = None,
                  cache_prior: dict | None = None,
                  cache_calib: dict | None = None,
-                 transformer: tfm_mod.Transformer | None = None):
+                 transformer: tfm_mod.Transformer | None = None,
+                 moonlight: moon_mod.Moonlight | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed)
         self.lstm = lstm
         self.transformer = transformer
+        self.moonlight = moonlight
         self.out_b = nn.Parameter(out_b)
         for name, value in (("out_proj", out_proj), ("out_w", out_w)):
             self.register_parameter(
@@ -107,7 +111,11 @@ def check_supported(cfg) -> None:
     """Raise for finetune over a backbone that launches kernels: the outer
     gradient differentiates the inner one, and the kernels' backward has
     no derivative (the JAX package's outer grad fails there as well, in
-    the Pallas call's JVP).  Use cell='scan' (flash=False)."""
+    the Pallas call's JVP).  Use cell='scan' (flash=False).  Moonlight's
+    block samples and evaluates only: no finetune."""
+    if cfg.support_mode == "finetune" and cfg.model == "moonlight":
+        raise ValueError("support_mode='finetune' is not available for "
+                         "model='moonlight'")
     if cfg.support_mode == "finetune" and (
             (cfg.model == "lstm" and cfg.cell == "pallas")
             or (cfg.model == "transformer" and cfg.flash)):
@@ -138,9 +146,13 @@ def init_lm(cfg, vocab_size: int, generator: torch.Generator,
     e = cfg.embed_dim
     emb = torch.randn((vocab_size, e), generator=generator) * 0.02
     lstm = tfm = None
+    moon = None
     if cfg.model == "lstm":
         h = cfg.hidden_dim
         lstm = lstm_mod.init_lstm_params(e, h, cfg.num_layers, generator)
+    elif cfg.model == "moonlight":
+        h = e
+        moon = moon_mod.init_moonlight(cfg, generator)
     else:
         h = e               # the head's input width
         tfm = tfm_mod.init_transformer_params(cfg, generator)
@@ -167,7 +179,7 @@ def init_lm(cfg, vocab_size: int, generator: torch.Generator,
             if cfg.cache_calib_freq:
                 cache["cache_calib"]["a"] = torch.zeros(CACHE_CALIB_MAX)
     return LM(emb, lstm, torch.zeros(vocab_size), out_proj, out_w,
-              **cache, transformer=tfm).to(dev)
+              **cache, transformer=tfm, moonlight=moon).to(dev)
 
 
 def head_logits(params: LM, hidden: torch.Tensor, cfg) -> torch.Tensor:
@@ -298,6 +310,10 @@ def lm_logits(params: LM, tokens: torch.Tensor, cfg,
             params.lstm, x, mask=mask, state=state,
             compute_dtype=compute_dtype(cfg), cell=cfg.cell,
             eval_mode=eval_mode, zx0=zx0)
+    elif cfg.model == "moonlight":
+        x = dropout(embed(params, tokens), cfg.dropout, drop_in)
+        hidden = moon_mod.forward(params.moonlight, x, mask, cfg)
+        state = None
     else:
         x = dropout(embed(params, tokens), cfg.dropout, drop_in)
         hidden = tfm_mod.transformer_forward(params.transformer, x, mask,
@@ -655,10 +671,11 @@ def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False,
 
     LSTM: the support state (support_mode state or mean_state; none for an
     unconditioned model) primes each episode's Q query songs, which run as
-    one [B*Q, L-1] batch.  Transformer: under state and mean_state alike the
-    K support songs form a prefix that the query songs attend to
-    (``transformer_prefix_forward``); none runs the plain causal model.  The
-    head is the fused head+CE (``fused_head_eligible``) or the dense logits;
+    one [B*Q, L-1] batch.  Transformer and Moonlight: under state and
+    mean_state alike the K support songs form a prefix that the query songs
+    attend to (``transformer_prefix_forward``, ``moonlight.prefix_forward``);
+    none runs the plain causal model.  The head is the fused head+CE
+    (``fused_head_eligible``) or the dense logits;
     the loss is plain CE or, with support_cache, the gated cache mixture
     (static or dynamic cache).  eval_mode forces cache_lm_aux and
     cache_resp_floor to 0, so every reported NLL is the pure mixture.  In
@@ -684,7 +701,7 @@ def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False,
     fused = fused_head_eligible(params, cfg, v_total)
     conditioned = cfg.support_mode in ("state", "mean_state")
     hidden = logits = None
-    if cfg.model == "transformer" and conditioned:
+    if cfg.model in ("transformer", "moonlight") and conditioned:
         drop_in, drop_out = _drop_sources(drop)
         # the K support songs, concatenated, form each episode's prefix
         _, k_, sl = ep.support.shape
@@ -692,8 +709,12 @@ def episodic_nll_stats(params: LM, ep, cfg, eval_mode: bool = False,
         prefix_mask = (torch.arange(sl, device=prefix.device)
                        < ep.support_len[..., None]).reshape(b, k_ * sl)
         q_emb = dropout(embed(params, flat_inputs), cfg.dropout, drop_in)
-        hidden = tfm_mod.transformer_prefix_forward(
-            params.transformer, embed(params, prefix), prefix_mask,
+        prefix_forward, backbone = (
+            (moon_mod.prefix_forward, params.moonlight)
+            if cfg.model == "moonlight" else
+            (tfm_mod.transformer_prefix_forward, params.transformer))
+        hidden = prefix_forward(
+            backbone, embed(params, prefix), prefix_mask,
             q_emb.reshape(b, q_, l_ - 1, -1), mask, cfg)
         hidden = dropout(hidden.reshape(b * q_, l_ - 1, -1), cfg.dropout,
                          drop_out)

@@ -43,6 +43,7 @@ from fewshot_torch.data import midi as midi_mod
 from fewshot_torch.data.vocab import BOS, EOS, PAD
 from fewshot_torch.models import lm as lm_mod
 from fewshot_torch.models import lstm as lstm_mod
+from fewshot_torch.models import moonlight as moon_mod
 from fewshot_torch.models import transformer as tfm_mod
 from fewshot_torch.utils.metrics import span
 
@@ -148,10 +149,12 @@ def _count_emitted(c_pre: torch.Tensor, n_pre: torch.Tensor,
 
 def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
             temperature, early_exit: bool, ctx=None,
-            token_masks: torch.Tensor | None = None) -> torch.Tensor:
+            token_masks: torch.Tensor | None = None,
+            head=None) -> torch.Tensor:
     """The decode loop from BOS: step(tok [B], i) -> top hidden [B, D] of
     position i; ctx: the cache head's context (``_cache_ctx``) or None;
-    token_masks: [P, V] bool, the legal tokens of each phase, or None.
+    token_masks: [P, V] bool, the legal tokens of each phase, or None;
+    head: hidden -> logits, ``lm.head_logits`` where None.
     Returns tokens [B, n_tokens], PAD after a row's EOS."""
     if len(generators) != b:
         raise ValueError(f"need one generator per row ({b}), got "
@@ -183,7 +186,8 @@ def _decode(params, step, b: int, dev, generators, cfg, n_tokens: int,
                     break
             with span("sample.decode_step"):
                 h = step(tok, i)
-                logits = lm_mod.head_logits(params, h, cfg)
+                logits = (lm_mod.head_logits(params, h, cfg) if head is None
+                          else head(h))
                 if ctx is not None:
                     # sample from the same mixture the NLL scores
                     log_cache = (_dynamic_log_cache(ctx, c_pre, n_pre)
@@ -256,6 +260,50 @@ def sample_transformer(params, support: torch.Tensor,
                    token_masks)
 
 
+def sample_moonlight(params, support: torch.Tensor,
+                     support_len: torch.Tensor, generators, cfg,
+                     n_tokens: int, temperature=None,
+                     early_exit: bool = True,
+                     token_masks=None) -> torch.Tensor:
+    """Moonlight's block by latent-cache decode, laid out as
+    ``sample_transformer``: the support prefix (state or mean_state)
+    prefilled into the latent cache, then position K L + i decodes token
+    i.  The weights' compute-dtype copies, the embedding's among them,
+    are made once, inside ``sample.support``; the tied head multiplies
+    by that copy (``head_logits``' products at the same operands).
+    support [B, K, L] -> tokens [B, n]."""
+    m = params.moonlight
+    dt = lm_mod.compute_dtype(cfg)
+    b, k_, l_ = support.shape
+    dev = support.device
+    with span("sample.support"):
+        ws = moon_mod.compute_weights(m, dt)
+        emb = params.embed.to(dt)
+        w_head = emb.T if cfg.tie_embeddings else params.out_w.to(dt)
+        prefix_len = (k_ * l_ if cfg.support_mode in ("state", "mean_state")
+                      else 0)
+        cache = moon_mod.init_cache(m, b, prefix_len + n_tokens + 1, dt, dev)
+        if prefix_len:
+            mask = (torch.arange(l_, device=dev)
+                    < support_len[..., None]).reshape(b, prefix_len)
+            moon_mod.prefill(m, ws, emb[support.reshape(b, prefix_len)],
+                             mask, cache, cfg)
+        ctx = _cache_ctx(params, support, support_len, cfg)
+
+    def step(tok, i):
+        return moon_mod.decode_step(m, ws, emb[tok], cache, prefix_len + i,
+                                    cfg)
+
+    def head(h):
+        return moon_mod.mm(h, w_head) + params.out_b
+    return _decode(params, step, b, dev, generators, cfg, n_tokens,
+                   temperature, early_exit, ctx, token_masks, head)
+
+
+SAMPLERS = {"lstm": sample_lstm, "transformer": sample_transformer,
+            "moonlight": sample_moonlight}
+
+
 def prefix_cache(params, support: torch.Tensor, support_len: torch.Tensor,
                  cfg, extra: int) -> tuple[dict, int]:
     """(KV cache, prefix length): a cache of prefix length + `extra`
@@ -294,7 +342,7 @@ def generate(params, support: torch.Tensor, support_len: torch.Tensor,
     with span("sample.generate"):
         lm_mod.check_supported(cfg)
         n = n_tokens if n_tokens is not None else cfg.sample_tokens
-        fn = sample_lstm if cfg.model == "lstm" else sample_transformer
+        fn = SAMPLERS[cfg.model]
         if cfg.support_mode != "finetune":
             with torch.inference_mode():
                 return fn(params, support, support_len, generators, cfg, n,

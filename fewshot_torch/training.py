@@ -176,7 +176,13 @@ def global_norm(grads: dict) -> torch.Tensor:
 
 
 def _make_apply(cfg, opt: Optimizer):
-    """The grad-normalize + optimizer update half of a train step."""
+    """The grad-normalize + optimizer update half of a train step.  Raises
+    for model='moonlight', which samples and evaluates only (no train step
+    of it is held against a reference)."""
+    if cfg.model == "moonlight":
+        raise ValueError("model='moonlight' has no train step: it samples "
+                         "and evaluates only")
+
     def apply(state: TrainState, grads: dict, total, count):
         with span("optim.apply"):
             # grads are CE sums; normalize by the token count
